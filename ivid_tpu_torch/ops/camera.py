@@ -1,0 +1,50 @@
+"""Camera math: perspective projections and homogeneous transforms.
+
+Plain 4x4 matrices in standard math convention, ``clip = P @ MV @ [x, y, z, 1]``,
+with OpenGL's conventions (right-handed eye space looking down ``-z``, NDC z in
+[-1, 1]) so depth-buffer semantics match the reference GL pipeline. Float32
+throughout; matrix products run in full f32 (no TF32).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def perspective(fov_y_deg: float, aspect: float, near: float, far: float,
+                device=None) -> torch.Tensor:
+    """Right-handed perspective projection, NDC z in [-1, 1] (glm.perspective)."""
+    t = 1.0 / np.tan(np.deg2rad(fov_y_deg) / 2.0)
+    m = np.array([
+        [t / aspect, 0, 0, 0],
+        [0, t, 0, 0],
+        [0, 0, -(far + near) / (far - near), -2.0 * far * near / (far - near)],
+        [0, 0, -1.0, 0],
+    ], np.float32)
+    return torch.from_numpy(m).to(device)
+
+
+def transform_points(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply a 4x4 homogeneous transform to [..., 3] points (affine, w dropped)."""
+    return torch.matmul(pts, m[:3, :3].T) + m[:3, 3]
+
+
+def transform_points_h(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply a 4x4 transform to [..., 3] points, returning homogeneous [..., 4]."""
+    ones = torch.ones(pts.shape[:-1] + (1,), dtype=pts.dtype, device=pts.device)
+    return torch.matmul(torch.cat([pts, ones], dim=-1), m.T)
+
+
+def transform_dirs(m: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Rotate direction vectors by the upper 3x3 of a 4x4 transform."""
+    return torch.matmul(dirs, m[:3, :3].T)
+
+
+def inverse(m: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.inv(m)
+
+
+def camera_position(modelview: torch.Tensor) -> torch.Tensor:
+    """World-space camera position(s) from view matrices [..., 4, 4]."""
+    return inverse(modelview)[..., :3, 3]
