@@ -3,24 +3,41 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
 
-1. device: the card's name and power limit (nvidia-smi), then both kernels
-   built from ``ivid_tpu_torch/csrc`` with nvcc for sm_90a;
-2. K1 (packed attention) against its plain version at the slice's shape
-   [2, 1024, 768], 4 heads, in bf16 and f32, timed beside the plain version
-   and torch's scaled_dot_product_attention on the unpacked layout;
+1. device: the card's name and power limit (nvidia-smi), then the four
+   kernels built from ``ivid_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc
+   per source, all at once;
+2. K1 (packed attention) against its plain version at [2, 1024, 768] (the
+   sampling shape) and [8, 1024, 768] (the training forward's), 4 heads, in
+   bf16 and f32, with the log-sum-exp it stores for training, timed beside
+   the plain version and torch's scaled_dot_product_attention on the
+   unpacked layout;
 3. K2 (dense grid raster) against its plain version on live aggregation
    slots: four 128² seeded RGBD meshes rendered at r=384 from an orbit view;
-4. the full-width single-category UNet (random seeded weights, batch 2) on
+4. K3 (z-buffer resolve) against its plain version on the first warp render
+   of a training step: 8 SyntheticRGBDWarp 128² items at r=384;
+5. K2 on indexed triangles (the same render's skirt rings) at B=8 and B=1;
+6. K4 (packed attention backward) against autograd of the plain version at
+   the training shape [8, 1024, 768], 4 heads, bf16 and f32;
+7. the full-width single-category UNet (random seeded weights, batch 2) on
    the card with K1 in f32 against the same weights on the CPU plain path;
-5. a small 3-view chain (32² f32 UNets, both kernels on its path) on the card
-   against the same weights and noise on the CPU plain path;
-6. the sampling pipeline through its command-line entry point
-   (``ivid_tpu_torch.sample.main``): random viewset, batch 2, 1000-step DDPM
-   then 50-step guided DDIM, with both kernels' launch counters read around it.
+8. a small 3-view sampling chain (32² f32 UNets, K1 and K2 on its path) on
+   the card against the same weights and noise on the CPU plain path;
+9. a small training chain (32² f32 cond UNet, InpaintTrainer, batch 2, 3
+   AdamW steps, K1/K4/K3/K2 on its path) on the card against the CPU plain
+   path with the same weights and draws;
+10. the sampling pipeline through ``ivid_tpu_torch.sample.main``: random
+    viewset, batch 2, 1000-step DDPM then 50-step guided DDIM;
+11. training through ``ivid_tpu_torch.train.main``: the full-width
+    single-category cond model on SyntheticRGBDWarp 128², batch 8, 6 AdamW
+    steps with a checkpoint at step 3 and a reload;
+12. the same trainer's step (``run_step``) timed by stage with CUDA events
+    over 10 more steps, then 2 steps under torch.profiler: kernels, device
+    kernel time and idle share per step, and the top kernels.
 
-Then one JSON line with every kernel's numbers, the nvidia-smi line, and the
-last line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-non-zero and prints no result.
+Each main path (10, 11) runs with every launch counter set to 0 just before
+it and read just after. Then one JSON line with every kernel's numbers, the
+nvidia-smi line, and the last line ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits non-zero and prints no result.
 """
 
 import json
@@ -52,6 +69,30 @@ UNET_REL = 1e-3
 # differences of ~1e-6 carried through 20 steps; a condition-mask pixel flips
 # only where a pixel centre or a depth difference sits on a knife edge.
 CHAIN_REL, CHAIN_MASK_FRAC = 1e-3, 1e-2
+# K1's log-sum-exp vs torch.logsumexp of the f32 logits: summation order
+# (f32), and bf16 inputs rounded the same on both sides (bf16 path).
+K1_LSE_MAX = 1e-4
+# K3 vs its plain version on the card: depth and coverage are one minimum,
+# equal on every pixel; the payload is a tie average whose sum order differs
+# (the scatter adds with atomics).
+K3_PAY_MAX = 1e-5
+# K4 vs autograd of the plain version in f32 on the same inputs: f32 sums in
+# another order (f32 path); bf16 rounding of P and dS as product operands and
+# of the output, ~2^-9 relative per term (bf16 path).
+K4_F32_MAX, K4_BF16_REL = 1e-4, 1e-2
+# Training chain on the card vs the CPU plain path (f32, TF32 off, the same
+# draws): the losses differ by f32 sum order and by warp-mask pixels on knife
+# edges; AdamW steps of ~1e-4 per element may flip sign where a gradient is
+# ~0, which moves the parameters by < 1e-5 relative L2.
+TRAIN_LOSS_REL, TRAIN_PARAM_REL = 1e-3, 1e-5
+
+# The card's published peaks (NVIDIA H100 SXM data sheet) for the bounds.
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+
+
+KERNELS = ("packed_attention", "packed_attention_bwd", "dense_raster", "zbuffer_resolve")
 
 
 def log(msg):
@@ -91,7 +132,8 @@ def phase_device():
     smi = nvidia_smi_line()
     log(f"[device] {smi}")
     t0 = time.perf_counter()
-    for name in ("packed_attention", "dense_raster"):
+    cuda_build.build(KERNELS)
+    for name in KERNELS:
         cuda_build.load(name)
     log(f"[device] built {sorted(cuda_build.build_seconds)} with nvcc for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s "
@@ -103,7 +145,37 @@ def phase_device():
     return smi
 
 
-def phase_attention():
+def attention_bound_ms(b, t, heads, dtype, backward=False):
+    """Least time for packed attention at [b, t, 3·heads·64]: the products'
+    flops (forward 4·B·H·T²·D, backward 10·B·H·T²·D) at the type's peak, or
+    the operand bytes (qkv, out; backward also dout, lse and dqkv) at the
+    memory rate, whichever is larger."""
+    import torch
+
+    d = 64
+    size = 2 if dtype == torch.bfloat16 else 4
+    flops = (10 if backward else 4) * b * heads * t * t * d
+    nbytes = (b * t * 3 * heads * d + b * t * heads * d) * size
+    if backward:
+        nbytes += (b * t * heads * d + b * t * 3 * heads * d) * size + b * heads * t * 4
+    t_ops = flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def lse_reference(qkv, heads, scale):
+    """Per-row log-sum-exp of the f32 logits, [B, H, T]."""
+    import torch
+
+    b, t, d = qkv.shape[0], qkv.shape[1], 64
+    q, k, _ = qkv.float().reshape(b, t, heads, 3 * d).split(d, dim=-1)
+    return torch.logsumexp(torch.einsum("bthd,bshd->bhts", q, k) * scale * scale, dim=-1)
+
+
+def phase_attention(b, seed, training):
+    """K1 at [b, 1024, 768], 4 heads: b=2 is the sampling shape; b=8 with
+    ``training`` the training forward's, which also writes the log-sum-exp,
+    so the entry's ``ms`` is the kernel's with it."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -111,44 +183,55 @@ def phase_attention():
     from ivid_tpu_torch.ops import attention
 
     dev = torch.device("cuda")
-    b, t, heads, d = 2, 1024, 4, 64
+    t, heads, d = 1024, 4, 64
     c = heads * d
     scale = float(d ** -0.25)
     qkv32 = torch.from_numpy(
-        np.random.default_rng(0).standard_normal((b, t, 3 * c)).astype(np.float32)
+        np.random.default_rng(seed).standard_normal((b, t, 3 * c)).astype(np.float32)
     ).to(dev)
     qkv16 = qkv32.to(torch.bfloat16)
 
-    got16 = attention.packed_attention(qkv16, heads, scale).float()
+    got16, lse16 = attention._launch(qkv16, heads, scale, with_lse=True)
     want16 = attention.reference_attention(qkv16.float(), heads, scale)
-    err16 = (got16 - want16).abs()
-    got32 = attention.packed_attention(qkv32, heads, scale)
+    err16 = (got16.float() - want16).abs()
+    got32, lse32 = attention._launch(qkv32, heads, scale, with_lse=True)
     want32 = attention.reference_attention(qkv32, heads, scale)
     err32 = (got32 - want32).abs()
+
+    lse_err = max((lse16 - lse_reference(qkv16, heads, scale)).abs().max().item(),
+                  (lse32 - lse_reference(qkv32, heads, scale)).abs().max().item())
     torch.cuda.synchronize()
     max16, mean16, max32 = err16.max().item(), err16.mean().item(), err32.max().item()
-    log(f"[K1] bf16 max|err| {max16:.3e} (<= {K1_BF16_MAX}) mean {mean16:.3e} "
-        f"(<= {K1_BF16_MEAN}); f32 max|err| {max32:.3e} (<= {K1_F32_MAX})")
-    if not (max16 <= K1_BF16_MAX and mean16 <= K1_BF16_MEAN and max32 <= K1_F32_MAX):
+    log(f"[K1] [{b},{t},{3 * c}] bf16 max|err| {max16:.3e} (<= {K1_BF16_MAX}) mean {mean16:.3e} "
+        f"(<= {K1_BF16_MEAN}); f32 max|err| {max32:.3e} (<= {K1_F32_MAX}); "
+        f"log-sum-exp max|err| {lse_err:.3e} (<= {K1_LSE_MAX})")
+    if not (max16 <= K1_BF16_MAX and mean16 <= K1_BF16_MEAN and max32 <= K1_F32_MAX
+            and lse_err <= K1_LSE_MAX):
         raise RuntimeError("K1 disagrees with its plain version")
 
     q, k, v = qkv16.reshape(b, t, heads, 3 * d).split(d, dim=-1)
     q, k, v = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     ms = cuda_time_ms(lambda: attention.packed_attention(qkv16, heads, scale))
+    lse_ms = cuda_time_ms(lambda: attention._launch(qkv16, heads, scale, with_lse=True))
     plain_ms = cuda_time_ms(lambda: attention.reference_attention(qkv16, heads, scale))
     sdpa_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     ms32 = cuda_time_ms(lambda: attention.packed_attention(qkv32, heads, scale))
     plain32_ms = cuda_time_ms(lambda: attention.reference_attention(qkv32, heads, scale))
-    log(f"[K1] [2,1024,768] 4 heads bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA (unpacked, timing only) {sdpa_ms:.4f} ms; f32: kernel {ms32:.4f} ms, "
-        f"plain {plain32_ms:.4f} ms")
+    bound, bound_by = attention_bound_ms(b, t, heads, torch.bfloat16)
+    bound32, _ = attention_bound_ms(b, t, heads, torch.float32)
+    log(f"[K1] [{b},{t},{3 * c}] 4 heads bf16: kernel {ms:.4f} ms (with log-sum-exp {lse_ms:.4f} ms, "
+        f"bound {bound:.4f} ms by {bound_by}), plain {plain_ms:.4f} ms, "
+        f"SDPA (unpacked, timing only) {sdpa_ms:.4f} ms; f32: kernel {ms32:.4f} ms "
+        f"(bound {bound32:.4f} ms), plain {plain32_ms:.4f} ms")
     return {
-        "name": "packed_attention", "route": "cuda",
+        "name": "packed_attention_train" if training else "packed_attention", "route": "cuda",
         "source": "ivid_tpu_torch/csrc/packed_attention.cu",
         "replaces": "ivid_tpu/ops/attention.py:167",
-        "max_abs_err": max16, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": max16, "ms": lse_ms if training else ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": sdpa_ms, "shape": [b, t, 3 * c],
+        "no_lse_ms": ms, "lse_ms": lse_ms, "lse_max_abs_err": lse_err,
         "f32_max_abs_err": max32, "f32_ms": ms32, "f32_plain_ms": plain32_ms,
-        "sdpa_ms": sdpa_ms,
+        "f32_bound_ms": bound32,
     }
 
 
@@ -180,6 +263,46 @@ def live_slots(dev, n=4, s=128, seed=0):
     return geom.stack_meshes(meshes), target
 
 
+def compare_dense(got, want, tag):
+    """Pixel mismatch fractions and the attribute error where both agree on
+    the depth; raises past the K2 tolerances."""
+    cov_frac = (got.covered != want.covered).float().mean().item()
+    front_frac = (got.front != want.front).float().mean().item()
+    same_z = got.covered & want.covered & ((got.depth - want.depth).abs() <= 1e-6)
+    depth_frac = 1.0 - (same_z | (~got.covered & ~want.covered)).float().mean().item()
+    attr_err = (got.attrs - want.attrs).abs()[same_z].max().item() if same_z.any() else 0.0
+    log(f"[{tag}] covered {want.covered.float().mean().item():.3f}; mismatched pixels: "
+        f"coverage {cov_frac:.2e}, front {front_frac:.2e}, depth {depth_frac:.2e} "
+        f"(each <= {K2_PIXEL_FRAC}); max|attr err| where both agree on depth {attr_err:.3e} "
+        f"(<= {K2_ATTR_MAX}) over {got.covered.numel()} pixels")
+    if not (cov_frac <= K2_PIXEL_FRAC and front_frac <= K2_PIXEL_FRAC
+            and depth_frac <= K2_PIXEL_FRAC and attr_err <= K2_ATTR_MAX and same_z.any()):
+        raise RuntimeError(f"{tag}: K2 disagrees with its plain version")
+    return attr_err, max(cov_frac, front_frac, depth_frac)
+
+
+def k2_bound_ms(tables, r):
+    """Least time for K2 on these tables: the plane evaluations they ask for
+    (every pixel of a row against the 128 triangles of each chunk the row
+    visits, 6 planes x 2 multiplies + 2 adds) at the f32 peak, or the table
+    and output bytes at the memory rate, whichever is larger."""
+    import torch
+
+    lohi, spans, glob, geom, pay = tables
+    B, nc = spans.shape[0], spans.shape[1]
+    c = torch.arange(nc, device=geom.device)[None, None, :]
+    y = torch.arange(r, device=geom.device)[None, :, None]
+    band = (c >= lohi[..., 0:1]) & (c < lohi[..., 1:2])
+    glb = (c >= glob[:, None, 0:1]) & (c < glob[:, None, 1:2])
+    in_span = (spans[:, None, :, 0] <= y) & (spans[:, None, :, 1] >= y)
+    visits = ((band | glb) & in_span).sum().item()
+    flops = visits * 128 * r * 6 * 4
+    out_bytes = B * r * r * (1 + pay.shape[1] // nc) * 4
+    nbytes = sum(x.numel() * x.element_size() for x in tables) + out_bytes
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def phase_raster():
     import torch
 
@@ -199,33 +322,194 @@ def phase_raster():
     got = raster_dense.raster_rows(tables, r, A)
     want = raster_dense.raster_rows_reference(tables, r, A)
     torch.cuda.synchronize()
-    npix = got.covered.numel()
-    cov_frac = (got.covered != want.covered).float().mean().item()
-    front_frac = (got.front != want.front).float().mean().item()
-    same_z = got.covered & want.covered & ((got.depth - want.depth).abs() <= 1e-6)
-    depth_frac = 1.0 - (same_z | (~got.covered & ~want.covered)).float().mean().item()
-    attr_err = (got.attrs - want.attrs).abs()[same_z].max().item()
     log(f"[K2] {n} slots x {r}² ({g}² grid, {cols[0][0].shape[1]} tris/slot, "
-        f"{tables[3].shape[1] // 8} chunks/slot): covered {want.covered.float().mean().item():.3f}; "
-        f"mismatched pixels: coverage {cov_frac:.2e}, front {front_frac:.2e}, depth {depth_frac:.2e} "
-        f"(each <= {K2_PIXEL_FRAC}); max|attr err| where both agree on depth {attr_err:.3e} "
-        f"(<= {K2_ATTR_MAX}) over {npix} pixels")
-    if not (cov_frac <= K2_PIXEL_FRAC and front_frac <= K2_PIXEL_FRAC
-            and depth_frac <= K2_PIXEL_FRAC and attr_err <= K2_ATTR_MAX):
-        raise RuntimeError("K2 disagrees with its plain version")
-    ms = cuda_time_ms(lambda: raster_dense.raster_rows(tables, r, A))
+        f"{tables[3].shape[1] // 8} chunks/slot)")
+    attr_err, mismatch = compare_dense(got, want, "K2")
+    ms = cuda_time_ms(lambda: raster_dense._launch(tables, r, A))
+    finish_ms = cuda_time_ms(lambda: raster_dense.raster_rows(tables, r, A))
     plain_ms = cuda_time_ms(lambda: raster_dense.raster_rows_reference(tables, r, A), reps=3, warmup=1)
     prep_ms = cuda_time_ms(lambda: raster_dense.prep_pack(
         *raster_dense.grid_cols(win, w, attrs, meshes.positions, g, 3), r, A))
-    log(f"[K2] {n} slots: kernel+finish {ms:.4f} ms ({ms / n:.4f} ms/slot), plain+finish "
-        f"{plain_ms:.4f} ms, table prep (torch) {prep_ms:.4f} ms")
+    bound, bound_by = k2_bound_ms(tables, r)
+    log(f"[K2] {n} slots: kernel {ms:.4f} ms ({ms / n:.4f} ms/slot; bound {bound:.4f} ms by "
+        f"{bound_by}), kernel+finish {finish_ms:.4f} ms, plain+finish {plain_ms:.4f} ms, "
+        f"table prep (torch) {prep_ms:.4f} ms")
     return {
         "name": "dense_raster", "route": "cuda",
         "source": "ivid_tpu_torch/csrc/dense_raster.cu",
         "replaces": "ivid_tpu/ops/raster_dense.py:467",
-        "max_abs_err": attr_err, "ms": ms, "plain_ms": plain_ms,
-        "mismatch_frac": max(cov_frac, front_frac, depth_frac), "slots": n,
-        "prep_ms": prep_ms,
+        "max_abs_err": attr_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": None, "mismatch_frac": mismatch, "slots": n,
+        "with_finish_ms": finish_ms, "prep_ms": prep_ms,
+    }
+
+
+def warp_render_inputs(dev, batch=8, s=128, seed=0):
+    """The first render of a training step's warp: ``batch`` SyntheticRGBDWarp
+    items of the cond config at s², each lifted with an s-pixel skirt and seen
+    from a drawn orbit pose, as ``renderer.simple_fragments`` gives them at
+    r = 3s."""
+    import torch
+
+    from ivid_tpu_torch.config import Config
+    from ivid_tpu_torch.data import SyntheticRGBDWarp
+    from ivid_tpu_torch.ops import geometry as geom
+    from ivid_tpu_torch.ops import renderer
+    from ivid_tpu_torch.ops import warp as warp_ops
+    from ivid_tpu_torch.training import warp_cond
+
+    args = dict(Config.load(COND_CFG).dataset["args"], image_size=s)
+    ds = SyntheticRGBDWarp(**args)
+    x01 = torch.stack([torch.from_numpy(ds[i]["x_0"]) for i in range(batch)]).to(dev) * 0.5 + 0.5
+    rng = HostNoise(seed, dev)
+    pre = [warp_cond.presample(x, rng, augments=ds.augments, pose_std=ds.std) for x in x01]
+    mv0 = warp_ops.default_modelview(dev)
+    mesh = geom.stack_meshes([
+        geom.depth_to_mesh(geom.linearize_depth(p[0][..., 3:], ds.near, ds.far), padding=s,
+                           modelview=mv0)
+        for p in pre
+    ])
+    mv1 = torch.stack([p[1] for p in pre])
+    return renderer.simple_fragments(mesh, mv1, 45.0, 3 * s, 0.1, 200.0), 3 * s
+
+
+def phase_resolve():
+    import torch
+
+    from ivid_tpu_torch.ops import raster, raster_tiled
+
+    dev = torch.device("cuda")
+    f, r = warp_render_inputs(dev)
+    frags, pay = [f["fragments"]], [f["payload"]]
+    B = f["win"].shape[0]
+    got = raster_tiled.resolve_zbuffer_tiled(frags, pay, r, B)
+    want = raster.resolve_zbuffer_scatter(frags, pay, r, B)
+    torch.cuda.synchronize()
+    n_valid = int(f["fragments"].valid.sum())
+    n_frag = f["fragments"].valid.numel()
+    cov_bad = (got[2] != want[2]).sum().item()
+    depth_bad = (got[1] != want[1]).sum().item()
+    pay_err = (got[0] - want[0]).abs().max().item()
+    log(f"[K3] {B} buffers x {r}²: {n_frag} fragments ({n_valid} valid), covered "
+        f"{want[2].float().mean().item():.3f}; pixels differing: coverage {cov_bad}, depth "
+        f"{depth_bad} (both must be 0); max|payload err| {pay_err:.3e} (<= {K3_PAY_MAX})")
+    if cov_bad or depth_bad or not pay_err <= K3_PAY_MAX:
+        raise RuntimeError("K3 disagrees with its plain version")
+    prepared = raster_tiled.prepare(frags, pay, r, B)
+    ms = cuda_time_ms(lambda: raster_tiled.launch(*prepared, r, B))
+    prep_ms = cuda_time_ms(lambda: raster_tiled.prepare(frags, pay, r, B))
+    plain_ms = cuda_time_ms(lambda: raster.resolve_zbuffer_scatter(frags, pay, r, B))
+    npix, k = B * r * r, pay[0].shape[-1]
+    nbytes = (npix + 1) * 4 + n_valid * (4 + 16) + npix * (4 * k + 4 + 1)
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"[K3] kernel {ms:.4f} ms (bound {bound:.4f} ms by bytes: {nbytes / 1e6:.1f} MB), "
+        f"sort/search prep (torch) {prep_ms:.4f} ms, plain version (two scatters) "
+        f"{plain_ms:.4f} ms")
+    return {
+        "name": "zbuffer_resolve", "route": "cuda",
+        "source": "ivid_tpu_torch/csrc/zbuffer_resolve.cu",
+        "replaces": "ivid_tpu/ops/raster_tiled.py:52",
+        "max_abs_err": pay_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "bytes", "library_ms": None, "prep_ms": prep_ms,
+        "fragments": n_frag, "valid_fragments": n_valid, "buffers": B,
+    }, f, r
+
+
+def phase_skirt(f, r):
+    """K2 on the warp render's skirt rings (indexed triangles), B=8 and B=1."""
+    from ivid_tpu_torch.ops import raster_dense
+
+    out = []
+    for tag, sl in (("K2 skirt B=8", slice(None)), ("K2 skirt B=1", slice(0, 1))):
+        win, w, attrs, ring = f["win"][sl], f["w"][sl], f["attrs"][sl], f["ring"][sl]
+        A = attrs.shape[-1]
+        tables = raster_dense.prep_pack(*raster_dense.tri_cols(win, w, attrs, ring, None), r, A)
+        got = raster_dense.raster_rows(tables, r, A)
+        want = raster_dense.raster_rows_reference(tables, r, A)
+        log(f"[{tag}] {win.shape[0]} rings of {ring.shape[1]} triangles at {r}²")
+        attr_err, mismatch = compare_dense(got, want, tag)
+        ms = cuda_time_ms(lambda: raster_dense._launch(tables, r, A))
+        plain_ms = cuda_time_ms(lambda: raster_dense.raster_rows_reference(tables, r, A),
+                                reps=3, warmup=1)
+        prep_ms = cuda_time_ms(lambda: raster_dense.prep_pack(
+            *raster_dense.tri_cols(win, w, attrs, ring, None), r, A))
+        bound, bound_by = k2_bound_ms(tables, r)
+        log(f"[{tag}] kernel {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}), plain+finish "
+            f"{plain_ms:.4f} ms, table prep (torch) {prep_ms:.4f} ms")
+        b1 = win.shape[0] == 1
+        out.append({
+            "name": "dense_raster_b1" if b1 else "dense_raster_skirt", "route": "cuda",
+            "source": "ivid_tpu_torch/csrc/dense_raster.cu",
+            "replaces": "ivid_tpu/ops/raster_dense.py:458" if b1
+            else "ivid_tpu/ops/raster_dense.py:467",
+            "max_abs_err": attr_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None, "mismatch_frac": mismatch,
+            "prep_ms": prep_ms, "buffers": win.shape[0],
+        })
+    return out
+
+
+def phase_attention_backward():
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ivid_tpu_torch.ops import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    b, t, heads, d = 8, 1024, 4, 64
+    c = heads * d
+    scale = float(d ** -0.25)
+    rng = np.random.default_rng(3)
+    qkv32 = torch.from_numpy(rng.standard_normal((b, t, 3 * c)).astype(np.float32)).to(dev)
+    dout32 = torch.from_numpy(rng.standard_normal((b, t, c)).astype(np.float32)).to(dev)
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = qkv32.to(dtype).requires_grad_()
+        dout = dout32.to(dtype)
+        out = attention.packed_attention(qkv, heads, scale)
+        (got,) = torch.autograd.grad(out, qkv, dout)
+        ref_in = qkv.detach().float().requires_grad_()
+        ref_out = attention.reference_attention(ref_in, heads, scale)
+        (want,) = torch.autograd.grad(ref_out, ref_in, dout.float())
+        err = (got.float() - want).abs()
+        res[dtype] = (err.max().item(), (err.norm() / want.norm()).item())
+
+        # Timing: K4 alone on the forward's saved outputs; the plain version's
+        # and SDPA's backward alone, each on a graph built once.
+        o, lse = attention._launch(qkv.detach(), heads, scale, with_lse=True)
+        ms = cuda_time_ms(lambda: attention._launch_bwd(qkv.detach(), o, dout, lse, heads, scale))
+        plain_in = qkv.detach().requires_grad_()
+        plain_out = attention.reference_attention(plain_in, heads, scale)
+        plain_ms = cuda_time_ms(lambda: torch.autograd.grad(plain_out, plain_in, dout,
+                                                            retain_graph=True))
+        q, k, v = qkv.detach().reshape(b, t, heads, 3 * d).split(d, dim=-1)
+        q, k, v = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(q, k, v)
+        g4 = dout.reshape(b, t, heads, d).transpose(1, 2).contiguous()
+        sdpa_ms = cuda_time_ms(lambda: torch.autograd.grad(sdpa_out, (q, k, v), g4,
+                                                           retain_graph=True))
+        bound, bound_by = attention_bound_ms(b, t, heads, dtype, backward=True)
+        res[dtype] += (ms, plain_ms, sdpa_ms, bound, bound_by)
+    (m16, r16, ms16, p16, s16, b16, by16), (m32, r32, ms32, p32, s32, b32, _) = (
+        res[torch.bfloat16], res[torch.float32])
+    log(f"[K4] [8,1024,768] 4 heads: bf16 rel L2 {r16:.3e} (<= {K4_BF16_REL}), max|err| "
+        f"{m16:.3e}; f32 max|err| {m32:.3e} (<= {K4_F32_MAX}), rel L2 {r32:.3e}")
+    log(f"[K4] bf16: kernel {ms16:.4f} ms (bound {b16:.4f} ms by {by16}), plain backward "
+        f"{p16:.4f} ms, SDPA backward (unpacked, timing only) {s16:.4f} ms; f32: kernel "
+        f"{ms32:.4f} ms (bound {b32:.4f} ms), plain backward {p32:.4f} ms, SDPA backward "
+        f"{s32:.4f} ms")
+    if not (r16 <= K4_BF16_REL and m32 <= K4_F32_MAX):
+        raise RuntimeError("K4 disagrees with autograd of the plain version")
+    return {
+        "name": "packed_attention_bwd", "route": "cuda",
+        "source": "ivid_tpu_torch/csrc/packed_attention_bwd.cu",
+        "replaces": "ivid_tpu/ops/attention.py:312",
+        "max_abs_err": m16, "ms": ms16, "plain_ms": p16, "bound_ms": b16, "bound_by": by16,
+        "library_ms": s16, "shape": [b, t, 3 * c], "rel_l2": r16,
+        "f32_max_abs_err": m32, "f32_ms": ms32, "f32_plain_ms": p32, "f32_library_ms": s32,
+        "f32_bound_ms": b32,
     }
 
 
@@ -273,8 +557,8 @@ class HostNoise:
         self.gen = torch.Generator().manual_seed(seed)
         self.device = device
 
-    def split(self):
-        return self, self
+    def split(self, num=2):
+        return (self,) * num
 
     def fold_in(self, i):
         return self
@@ -283,6 +567,30 @@ class HostNoise:
         import torch
 
         return torch.randn(tuple(shape), generator=self.gen).to(self.device)
+
+    def uniform(self, shape):
+        import torch
+
+        return torch.rand(tuple(shape), generator=self.gen).to(self.device)
+
+    def randint(self, shape, low, high):
+        import torch
+
+        return torch.randint(low, high, tuple(shape), generator=self.gen).to(self.device)
+
+
+def reset_counts():
+    from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled
+
+    attention.launches = attention.bwd_launches = 0
+    raster_dense.launches = raster_tiled.launches = 0
+
+
+def read_counts():
+    from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled
+
+    return {"K1": attention.launches, "K2": raster_dense.launches,
+            "K3": raster_tiled.launches, "K4": attention.bwd_launches}
 
 
 def phase_chain(device="cuda"):
@@ -369,12 +677,12 @@ def phase_pipeline():
         "--batchsize", "2", "--steps_uncond", "1000", "--steps_cond", "50",
         "--device", "cuda",
     ]
-    attention.launches = 0
-    raster_dense.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     result = sample.main(argv)
     wall = time.perf_counter() - t0
-    k1, k2 = attention.launches, raster_dense.launches
+    counts = read_counts()
+    k1, k2 = counts["K1"], counts["K2"]
     samples = np.concatenate(result["samples"], axis=0)
     scenes = sorted(os.listdir(os.path.join(result["output_dir"], "scenes")))
     images = sorted(os.listdir(os.path.join(result["output_dir"], "results")))
@@ -387,9 +695,182 @@ def phase_pipeline():
         f"std {samples.std():.3f}; files: {len(scenes)} scene npz, {len(images)} result png; "
         f"launches: K1 {k1} (>= {5 * 1050}), K2 {k2} (>= 1)")
     if not (np.isfinite(samples).all() and samples.shape == (2, 2, 128, 128, 4)
-            and len(scenes) == 2 and len(images) == 2 and k1 >= 5 * 1050 and k2 >= 1):
+            and len(scenes) == 2 and len(images) == 2 and k1 >= 5 * 1050 and k2 >= 1
+            and counts["K3"] == counts["K4"] == 0):
         raise RuntimeError("pipeline run failed its checks")
-    return k1, k2
+    return counts
+
+
+def train_chain_run(device):
+    """A few InpaintTrainer steps of a small f32 cond model (32², attention
+    at T=1024 so K1 and K4 run, the warp at r=96 through K3 and K2) with
+    seeded weights and host-drawn noise. Returns the losses and parameters."""
+    import torch
+
+    from ivid_tpu_torch.config import Config
+    from ivid_tpu_torch.data import SyntheticRGBDWarp
+    from ivid_tpu_torch.diffusion.frameworks import build_framework
+    from ivid_tpu_torch.models import adm
+    from ivid_tpu_torch.training.trainer import InpaintTrainer, StepRecord
+
+    backbone = dict(
+        image_size=32, in_channels=10, out_channels=4, model_channels=64, num_res_blocks=1,
+        channel_mult=[1, 2], attention_resolutions=[32, 16], num_groups=32, num_heads=None,
+        num_head_channels=64, num_classes=None, has_null_class=False, dropout=0.0,
+        use_fp16=False,
+    )
+    fw = {"timesteps": 1000, "beta_schedule": "linear", "p_uncond": 0.1, "p_uncond_img": 0}
+    data = dict(Config.load(COND_CFG).dataset["args"], image_size=32, length=16)
+    model = adm.randomize_parameters(adm.build_adm_unet(backbone), seed=2)
+    framework = build_framework("InpaintCFG", model, fw, device=device)
+    tr = InpaintTrainer(
+        framework, SyntheticRGBDWarp(**data), tempfile.mkdtemp(prefix="chip_smoke_chain_"),
+        max_steps=3, batch_size=2, learning_rate=1e-4, weight_decay=0.0,
+        ema_rate=[0.9999], i_log=3, i_sample=10 ** 9, i_save=10 ** 9,
+        sample_at_init=False, device=device, noise=HostNoise(7, device),
+    )
+    tr.record = StepRecord()
+    tr.run()
+    losses = [float(x) for x in tr.record.losses]
+    return losses, torch.cat([p.detach().cpu().reshape(-1) for p in tr.model.parameters()])
+
+
+def phase_train_chain():
+    import numpy as np
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = read_counts()
+    got_loss, got = train_chain_run(torch.device("cuda"))
+    counts = {k: v - before[k] for k, v in read_counts().items()}
+    want_loss, want = train_chain_run(torch.device("cpu"))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got_loss, want_loss))
+    param_rel = ((got - want).norm() / want.norm()).item()
+    log(f"[train-chain] InpaintTrainer, 32² f32, batch 2, 3 AdamW steps: card launches {counts}; "
+        f"losses card {np.round(got_loss, 6).tolist()} vs CPU {np.round(want_loss, 6).tolist()}: "
+        f"max rel {loss_rel:.3e} (<= {TRAIN_LOSS_REL}); final parameters rel L2 "
+        f"{param_rel:.3e} (<= {TRAIN_PARAM_REL})")
+    if not (loss_rel <= TRAIN_LOSS_REL and param_rel <= TRAIN_PARAM_REL
+            and np.isfinite(got_loss).all()
+            and counts == {"K1": 9, "K2": 3, "K3": 6, "K4": 9}):
+        raise RuntimeError("the training chain on the card disagrees with the CPU plain path")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_train():
+    """Full-width cond-model training through the CLI's ``main``; returns
+    its launch counts and the trainer."""
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch import train
+    from ivid_tpu_torch.training import checkpoint as ckpt_io
+    from ivid_tpu_torch.training.trainer import StepRecord
+
+    steps = 6
+    with open(COND_CFG) as f:
+        cfg = json.load(f)
+    cfg["dataset"] = {"name": "SyntheticRGBDWarp",
+                      "args": dict(cfg["dataset"]["args"], length=64)}
+    cfg["trainer"]["args"].update(max_steps=steps, i_save=3, i_log=3, i_sample=10 ** 9,
+                                  sample_at_init=False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    path = os.path.join(tmp, os.path.basename(COND_CFG))
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    argv = ["--config", path, "--output_dir", os.path.join(tmp, "out"), "--device", "cuda"]
+    rec = StepRecord(timing=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = train.main(argv, record=rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in rec.losses]
+    times = rec.stage_ms()
+    step_ms = [round(m["step"], 3) for m in times]
+    warp_ms = [round(m["data_and_warp"], 3) for m in times]
+    run_dir = os.path.join(tmp, "out", os.path.splitext(os.path.basename(COND_CFG))[0])
+    step3 = ckpt_io.load(ckpt_io.model_path(run_dir, 3))
+    now = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    unchanged = [k for k, v in now.items() if torch.equal(step3[k], v)]
+    changed = len(now) - len(unchanged)
+    finite = all(torch.isfinite(v).all() for v in now.values())
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    again = train.main(argv + ["--ckpt", "latest"])
+    again_step = again.step
+    reloaded = again_step == steps and all(
+        torch.equal(v.cpu(), now[k]) for k, v in again.model.state_dict().items())
+    del again
+    per_step = {k: v / steps for k, v in counts.items()}
+    log(f"[train] train.main, full-width cond model ({n_params} parameters), "
+        f"SyntheticRGBDWarp 128², batch 8, {steps} AdamW steps: wall {wall:.2f} s; losses "
+        f"{np.round(losses, 5).tolist()}; ms per step (CUDA events) {step_ms}, of which data "
+        f"and warp conditioning {warp_ms}; peak memory {peak:.2f} GiB")
+    log(f"[train] launches {counts}, per step {per_step} (K1 5, K4 5, K3 2, K2 >= 1); "
+        f"{changed} of {len(now)} tensors changed since step 3 (not: {unchanged}); finite {finite}; "
+        f"reloaded step {again_step} equal {reloaded}")
+    if not (np.isfinite(losses).all() and len(losses) == steps and finite and changed > 0
+            and reloaded and counts["K1"] == 5 * steps and counts["K4"] == 5 * steps
+            and counts["K3"] == 2 * steps and counts["K2"] >= steps):
+        raise RuntimeError("training run failed its checks")
+    return counts, tr
+
+
+def phase_train_profile(tr, timed=10, profiled=2):
+    """Where the trainer's own step (``run_step``, as ``run`` takes it) spends
+    its time: ``timed`` steps by CUDA events per stage, then ``profiled``
+    steps under torch.profiler for the device's kernel time, its idle share
+    and the top kernels."""
+    import torch
+
+    from ivid_tpu_torch.training.trainer import StepRecord
+
+    tr.record = StepRecord(timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        tr.run_step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / timed
+    stages = tr.record.stage_ms()
+    mean = {k: sum(m[k] for m in stages) / timed for k in stages[0]}
+    tr.record = None
+    before = read_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(profiled):
+            tr.run_step()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3 / profiled
+    launches = {k: v - before[k] for k, v in read_counts().items()}
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue  # host ops and annotated ranges; kernels are entries of their own
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        rows.append((dev_us / 1e3 / profiled, e.count // profiled, e.key))
+    rows.sort(reverse=True)
+    kernel_ms = sum(r[0] for r in rows)
+    n_kernels = sum(r[1] for r in rows)
+    log(f"[train-profile] trainer step, batch 8, mean of {timed} steps (CUDA events, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in mean.items()) + f"; host wall {wall_ms:.2f}")
+    # Idle share against the profiled wall (the profiler slows the host) and
+    # against the unprofiled step by CUDA events.
+    log(f"[train-profile] {profiled} profiled steps: {n_kernels} kernels and {kernel_ms:.2f} ms "
+        f"of device kernel time per step; idle share {1 - kernel_ms / prof_wall:.3f} of the "
+        f"profiled wall ({prof_wall:.2f} ms), {1 - kernel_ms / mean['step']:.3f} of the "
+        f"unprofiled step; port kernel launches {launches}")
+    for ms, n, name in rows[:12]:
+        log(f"[train-profile]   {ms:9.3f} ms  x{n:<5d} {name[:110]}")
+    if not (rows and launches["K1"] == 5 * profiled and launches["K4"] == 5 * profiled):
+        raise RuntimeError("the profiled training steps show no device time or miss a kernel")
 
 
 def main():
@@ -399,12 +880,31 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     smi = phase_device()
-    k1 = phase_attention()
+    k1 = phase_attention(2, 0, training=False)
+    k1_train = phase_attention(8, 3, training=True)
     k2 = phase_raster()
+    k3, warp_inputs, r = phase_resolve()
+    skirt8, skirt1 = phase_skirt(warp_inputs, r)
+    del warp_inputs
+    k4 = phase_attention_backward()
     phase_unet()
     phase_chain()
-    k1["launches"], k2["launches"] = phase_pipeline()
-    log(json.dumps({"kernels": [k1, k2]}))
+    phase_train_chain()
+    sampling = phase_pipeline()
+    training, trainer = phase_train()
+    phase_train_profile(trainer)
+    del trainer
+    # ``launches``: the count of the path each kernel entry's shape stands
+    # for (K1 at batch 2 and K2 on grids: sampling; the other entries:
+    # training; K2 at B=1 is on neither path: the trainer warps the whole
+    # batch at once).
+    for entry, key, path in ((k1, "K1", sampling), (k1_train, "K1", training),
+                             (k2, "K2", sampling), (k3, "K3", training),
+                             (skirt8, "K2", training), (k4, "K4", training)):
+        entry["launches"] = path[key]
+        entry["launches_by_path"] = {"sampling": sampling[key], "training": training[key]}
+    skirt1["launches"] = 0
+    log(json.dumps({"kernels": [k1, k1_train, k2, skirt8, skirt1, k3, k4]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,17 @@ class Config:
         extra = {k: v for k, v in raw.items() if k not in known}
         return cls(**known, extra=extra)
 
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump({"backbone": self.backbone, "framework": self.framework,
+                       "dataset": self.dataset, "trainer": self.trainer, **self.extra},
+                      f, indent=4)
+
+    def resolve_num_classes(self, num_classes: Optional[int]) -> None:
+        """Resolve the backbone's ``num_classes: "auto"`` from the dataset."""
+        if self.backbone.get("args", {}).get("num_classes") == "auto":
+            self.backbone["args"]["num_classes"] = num_classes
+
 
 def build_backbone(cfg: Config, dtype: Optional[torch.dtype] = None):
     """The backbone module of ``cfg``; ``dtype`` overrides the torso type that

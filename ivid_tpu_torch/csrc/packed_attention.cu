@@ -31,6 +31,9 @@
 //   interleaved, so the pair reads neighbouring banks and the rest of the warp
 //   reads the same words (broadcast): no bank conflicts.
 // - The TPU's even-head rule (128-lane stripes) does not apply.
+// - For training, the launch may also write each row's log-sum-exp of the
+//   logits (f32 [B, H, T], natural log) so the backward
+//   (csrc/packed_attention_bwd.cu) rebuilds P without a second softmax pass.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -46,6 +49,7 @@ constexpr int kBQ = 64;       // queries per block
 constexpr int kBK = 64;       // keys per shared-memory tile
 constexpr int kThreads = 128;
 constexpr int kHalf = kD / 2;
+constexpr float kLn2 = 0.69314718055994531f;
 
 // ---------------------------------------------------------------- bf16 path
 constexpr int kWarps = kThreads / 32;
@@ -75,7 +79,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
 
 __global__ void __launch_bounds__(kThreads)
 packed_attention_fwd_bf16(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-                          int seq, int heads, float qscale) {
+                          float* __restrict__ lse, int seq, int heads, float qscale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* k_s = q_s + kTileH;
@@ -186,13 +190,16 @@ packed_attention_fwd_bf16(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* 
       *reinterpret_cast<__nv_bfloat162*>(dst + j) =
           __floats2bfloat162_rn(orow[j] * inv, orow[j + 1] * inv);
     }
+    if (lse != nullptr && half == 0) {
+      lse[((long long)b * heads + h) * seq + qi] = (m + log2f(l)) * kLn2;
+    }
   }
 }
 
 // ----------------------------------------------------------------- f32 path
 __global__ void __launch_bounds__(kThreads)
-packed_attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out, int seq,
-                         int heads, float qscale) {
+packed_attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out,
+                         float* __restrict__ lse, int seq, int heads, float qscale) {
   __shared__ float ks[kBK * kD];
   __shared__ float vs[kBK * kD];
 
@@ -268,15 +275,20 @@ packed_attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out,
     const float inv = 1.f / l;
 #pragma unroll
     for (int d = 0; d < kHalf; ++d) dst[d] = o[d] * inv;
+    if (lse != nullptr && half == 0) {
+      lse[((long long)b * heads + h) * seq + qi] = (m + log2f(l)) * kLn2;
+    }
   }
 }
 
 }  // namespace
 
 // qkv [batch, seq, 3*heads*64] and out [batch, seq, heads*64], contiguous,
-// both float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1). qscale is
-// scale^2 * log2(e). Returns cudaGetLastError() after the launch.
-extern "C" int packed_attention_fwd_launch(const void* qkv, void* out, int batch,
+// both float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1). lse is null or f32
+// [batch, heads, seq]: the natural log-sum-exp of each row's logits
+// scale^2 * q.k. qscale is scale^2 * log2(e). Returns cudaGetLastError()
+// after the launch.
+extern "C" int packed_attention_fwd_launch(const void* qkv, void* out, void* lse, int batch,
                                            int seq, int heads, float qscale,
                                            int is_bf16, void* stream) {
   const dim3 grid((seq + kBQ - 1) / kBQ, heads, batch);
@@ -287,11 +299,12 @@ extern "C" int packed_attention_fwd_launch(const void* qkv, void* out, int batch
         static_cast<int>(kSmemBf16));
     if (err != cudaSuccess) return static_cast<int>(err);
     packed_attention_fwd_bf16<<<grid, kThreads, kSmemBf16, s>>>(
-        static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), seq, heads,
-        qscale);
+        static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
+        static_cast<float*>(lse), seq, heads, qscale);
   } else {
     packed_attention_fwd_f32<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(qkv), static_cast<float*>(out), seq, heads, qscale);
+        static_cast<const float*>(qkv), static_cast<float*>(out), static_cast<float*>(lse), seq,
+        heads, qscale);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point (no PyTorch headers), so
 one ``nvcc`` call of a few seconds builds it. The shared library lands in
 ``ivid_tpu_torch/_build/`` (listed in ``.gitignore``), keyed by a hash of the
-source and the flags, and is built at first use: importing a module never
-touches nvcc or the GPU.
+source and the flags, and is built at first use (:func:`build` starts one
+nvcc per source at once): importing a module never touches nvcc or the GPU.
 """
 
 from __future__ import annotations
@@ -41,32 +41,45 @@ def nvcc() -> str:
     return found
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
-    if name in _libs:
-        return _libs[name]
+def _library(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}-{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names) -> None:
+    """Build the missing libraries of ``names``, one nvcc process per source,
+    all started together."""
+    todo = [n for n in dict.fromkeys(names) if not _library(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-            capture_output=True, text=True,
-        )
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    # communicate() drains each process's pipes while the others go on
+    # building; a build's seconds run until its output has been collected.
+    for name, (tmp, t0, proc) in procs.items():
+        out, err = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed for {src.name}:\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, so)
+            failed.append(f"nvcc failed for {name}.cu:\n{out}\n{err}")
+            continue
+        os.replace(tmp, _library(name))
         build_seconds[name] = time.perf_counter() - t0
-        build_log[name] = proc.stderr
-    lib = ctypes.CDLL(str(so))
-    _libs[name] = lib
-    return lib
+        build_log[name] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    if name not in _libs:
+        build([name])
+        _libs[name] = ctypes.CDLL(str(_library(name)))
+    return _libs[name]

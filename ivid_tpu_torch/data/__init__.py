@@ -1,0 +1,30 @@
+"""Datasets and the data loader. Only the procedural datasets are ported;
+the file-backed ones (ImageNet, SingleCategory and their SR/Warp forms) read
+image files through PIL and wait for a later slice."""
+
+from ivid_tpu_torch.data.base import (
+    BaseDataset,
+    SyntheticRGBD,
+    SyntheticRGBDWarp,
+    WarpDataset,
+)
+from ivid_tpu_torch.data.loader import DataLoader
+
+DATASETS = {
+    "SyntheticRGBD": SyntheticRGBD,
+    "SyntheticRGBDWarp": SyntheticRGBDWarp,
+}
+
+
+def build_dataset(section: dict, data_dir: str):
+    """The dataset of a config's ``dataset`` section, rooted at ``data_dir``."""
+    name = section["name"]
+    if name not in DATASETS:
+        raise NotImplementedError(
+            f"dataset {name!r} is not ported yet; the port has {sorted(DATASETS)}"
+        )
+    return DATASETS[name](data_dir, **section.get("args", {}))
+
+
+__all__ = ["DATASETS", "BaseDataset", "DataLoader", "SyntheticRGBD", "SyntheticRGBDWarp",
+           "WarpDataset", "build_dataset"]

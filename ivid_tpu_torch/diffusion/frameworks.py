@@ -1,10 +1,14 @@
 """Diffusion frameworks: how conditional inputs are packed and how
 classifier-free guidance composes the prediction at sampling time.
 
-Port of the inference side of ``ivid_tpu/diffusion/frameworks.py``. A
-framework holds a backbone module (called ``model(x, t, classes)`` on NHWC
-tensors) and a noise schedule. Conditioning is a dict with documented keys:
+Port of ``ivid_tpu/diffusion/frameworks.py``. A framework holds a backbone
+module (called ``model(x, t, classes)`` on NHWC tensors) and a noise
+schedule, and defines ``training_loss(rng, batch)`` (the eps-prediction MSE
+at a uniform random timestep) and ``model_inference`` (input packing and
+classifier-free guidance). Batches and conditioning are dicts with
+documented keys:
 
+- ``x_0``:      [B,H,W,4] RGBD target in [-1,1] (training)
 - ``classes``:  [B] int64 labels, -1 = null class (optional)
 - ``y``:        partial RGBD conditioning image [B,H,W,4] (inpainting)
 - ``mask``:     [B,H,W,1] visibility of ``y``'s depth
@@ -57,6 +61,31 @@ class GaussianDiffusion:
             return (1 + guidance) * eps_c - guidance * eps_u
         return self.model(packed, t, classes)
 
+    def p_uncond_train(self) -> float:
+        return 0.0
+
+    def _drop_classes(self, rng, classes, p_uncond):
+        if classes is None or not p_uncond:
+            return classes
+        drop = rng.uniform(classes.shape).to(classes.device) < p_uncond
+        return torch.where(drop, -torch.ones_like(classes), classes)
+
+    def _noised(self, rng_t, rng_n, x_0):
+        """A uniform timestep per sample, the noise, and x_t."""
+        t = rng_t.randint((x_0.shape[0],), 0, self.schedule.timesteps).to(x_0.device)
+        noise = rng_n.normal(x_0.shape).to(x_0)
+        return t, noise, sched.diffuse(self.schedule, x_0, t, noise)
+
+    def training_loss(self, rng, batch: Batch):
+        """MSE between the predicted and the true noise at a uniform random
+        timestep; returns ``(loss, {"loss", "mse"})``."""
+        rng_t, rng_n, rng_pack, rng_drop = rng.split(4)
+        t, noise, x_t = self._noised(rng_t, rng_n, batch["x_0"])
+        classes = self._drop_classes(rng_drop, batch.get("classes"), self.p_uncond_train())
+        pred_eps = self.model(self.pack_inputs(rng_pack, x_t, batch), t, classes)
+        mse = torch.mean(torch.square(pred_eps - noise))
+        return mse, {"loss": mse.detach(), "mse": mse.detach()}
+
 
 class ClassifierFreeGuidance(GaussianDiffusion):
     """CFG: labels dropped to -1 with probability ``p_uncond`` in training."""
@@ -66,6 +95,9 @@ class ClassifierFreeGuidance(GaussianDiffusion):
     def __init__(self, model, schedule, p_uncond: float = 0.1):
         super().__init__(model, schedule)
         self.p_uncond = p_uncond
+
+    def p_uncond_train(self) -> float:
+        return self.p_uncond
 
 
 class InpaintCFG(GaussianDiffusion):
@@ -99,6 +131,31 @@ class InpaintCFG(GaussianDiffusion):
         parts.append(y_depth * mask + noise_depth * (1 - mask))
         parts.append(mask)
         return torch.cat(parts, dim=-1)
+
+    def p_uncond_train(self) -> float:
+        return self.p_uncond
+
+    def pack_uncond_inputs(self, rng, x):
+        """The fully unconditioned 9-channel packing: x, noise, a zero mask."""
+        noise = rng.normal(x.shape).to(x)
+        return torch.cat([x, noise, torch.zeros_like(x[..., :1])], dim=-1)
+
+    def training_loss(self, rng, batch: Batch):
+        """With ``p_uncond_img > 0`` the image condition is dropped per sample
+        with that probability (its 9-channel packing without ``mask_rgb``);
+        otherwise the base loss."""
+        if not (self.p_uncond_img and self.p_uncond_img > 0):
+            return super().training_loss(rng, batch)
+        x_0 = batch["x_0"]
+        rng_t, rng_n, rng_pack, rng_drop, rng_img, rng_u = rng.split(6)
+        t, noise, x_t = self._noised(rng_t, rng_n, x_0)
+        classes = self._drop_classes(rng_drop, batch.get("classes"), self.p_uncond)
+        cond_in = self.pack_inputs(rng_pack, x_t, {"y": batch["y"], "mask": batch["mask"]})
+        uncond_in = self.pack_uncond_inputs(rng_u, x_t)
+        drop = rng_img.uniform((x_0.shape[0], 1, 1, 1)).to(x_0.device) < self.p_uncond_img
+        pred_eps = self.model(torch.where(drop, uncond_in, cond_in), t, classes)
+        mse = torch.mean(torch.square(pred_eps - noise))
+        return mse, {"loss": mse.detach(), "mse": mse.detach()}
 
 
 FRAMEWORKS = {

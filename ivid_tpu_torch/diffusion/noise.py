@@ -4,8 +4,9 @@ pipeline goes through.
 Its ``split``/``fold_in`` calls follow the key derivation of the JAX package
 (``jax.random.split`` / ``fold_in``) step for step, so an implementation that
 replays ``jax.random`` keys reproduces the JAX chain's noise exactly (the
-tests do this). The default, :class:`TorchNoise`, ignores the derivation and
-draws every sample in call order from one ``torch.Generator``.
+tests do this). A source draws ``normal``, ``uniform`` and ``randint``
+samples. The default, :class:`TorchNoise`, ignores the derivation and draws
+every sample in call order from one ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ class TorchNoise:
     def seeded(cls, seed: int, device=None) -> "TorchNoise":
         return cls(torch.Generator(device=device or "cpu").manual_seed(seed))
 
-    def split(self) -> Tuple["TorchNoise", "TorchNoise"]:
-        return self, self
+    def split(self, num: int = 2) -> Tuple["TorchNoise", ...]:
+        return (self,) * num
 
     def fold_in(self, i: int) -> "TorchNoise":
         del i
@@ -38,3 +39,19 @@ class TorchNoise:
         """Float32 samples of ``shape``."""
         return torch.randn(tuple(shape), generator=self.generator,
                            device=self.generator.device)
+
+    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        """Float32 samples of ``shape`` from U[0, 1)."""
+        return torch.rand(tuple(shape), generator=self.generator,
+                          device=self.generator.device)
+
+    def randint(self, shape: Sequence[int], low: int, high: int) -> torch.Tensor:
+        """Int64 samples of ``shape`` from {low, ..., high - 1}."""
+        return torch.randint(low, high, tuple(shape), generator=self.generator,
+                             device=self.generator.device)
+
+    def state_dict(self) -> dict:
+        return {"generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.generator.set_state(state["generator"])

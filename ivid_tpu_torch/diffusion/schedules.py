@@ -97,6 +97,13 @@ def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     return out.reshape(out.shape + (1,) * (ndim - 1))
 
 
+def diffuse(schedule: Schedule, x_0, t, noise):
+    """A sample of q(x_t | x_0) for the given ``noise``."""
+    nd = x_0.dim()
+    return (extract(schedule.sqrt_alphas_cumprod, t, nd) * x_0
+            + extract(schedule.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
+
 def predict_xstart_from_eps(schedule: Schedule, x_t, t, eps):
     nd = x_t.dim()
     return (extract(schedule.sqrt_recip_alphas_cumprod, t, nd) * x_t

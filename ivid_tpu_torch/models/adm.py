@@ -7,11 +7,16 @@ state-dict names are the reference's (``time_embed.{1,3}``, ``label_emb``,
 in residual blocks, ``norm``/``qkv``/``proj_out`` in attention blocks) and a
 reference checkpoint loads as it is.
 
-Precision: with ``use_fp16`` the convolutions and attention projections run
-in bfloat16 (their parameters are stored in bf16); GroupNorm runs in float32
-with eps 1e-5, the timestep/class embedding MLP in float32, and the output
-head in float32. The public call takes and returns NHWC tensors; internally
-activations are NCHW.
+Precision: every parameter is stored in float32 (the master weights an
+optimizer updates). With ``use_fp16`` the torso computes in bfloat16: its
+activations are bf16, and the convolutions and attention projections cast
+their weights to bf16 per call. GroupNorm runs in float32 with eps 1e-5, the
+timestep/class embedding MLP in float32, and the output head in float32. The
+public call takes and returns NHWC tensors; internally activations are NCHW.
+
+Initialization follows the reference: the residual blocks' second
+convolution, the attention output projection and the output convolution
+start at zero, so a fresh model predicts exactly zero.
 
 Attention mirrors the JAX package's choice of implementation: the packed
 CUDA kernel (:func:`ivid_tpu_torch.ops.attention.packed_attention`) where it
@@ -65,8 +70,20 @@ class GroupNorm32(nn.GroupNorm):
                             self.eps).to(x.dtype)
 
 
-def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, padding=k // 2)
+class Conv2d(nn.Conv2d):
+    """Convolution in its input's type: f32 parameters cast per call."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def _conv(cin: int, cout: int, k: int, zero: bool = False) -> Conv2d:
+    conv = Conv2d(cin, cout, k, padding=k // 2)
+    if zero:
+        nn.init.zeros_(conv.weight)
+        nn.init.zeros_(conv.bias)
+    return conv
 
 
 def _down(x):
@@ -96,7 +113,7 @@ class ResBlock(nn.Module):
         )
         self.out_layers = nn.Sequential(
             GroupNorm32(num_groups, out_channels), nn.SiLU(), nn.Dropout(dropout),
-            _conv(out_channels, out_channels, 3),
+            _conv(out_channels, out_channels, 3, zero=True),
         )
         self.skip_connection = (
             _conv(channels, out_channels, 1) if channels != out_channels else nn.Identity()
@@ -135,6 +152,8 @@ class AttentionBlock(nn.Module):
         self.norm = GroupNorm32(num_groups, channels)
         self.qkv = nn.Conv1d(channels, 3 * channels, 1)
         self.proj_out = nn.Conv1d(channels, channels, 1)
+        nn.init.zeros_(self.proj_out.weight)
+        nn.init.zeros_(self.proj_out.bias)
 
     def forward(self, x):
         b, c, hh, ww = x.shape
@@ -142,13 +161,14 @@ class AttentionBlock(nn.Module):
         head_dim = c // self.heads
         tokens = x.reshape(b, c, t).transpose(1, 2)
         normed = self.norm(x).reshape(b, c, t).transpose(1, 2)
-        qkv = F.linear(normed, self.qkv.weight[:, :, 0], self.qkv.bias).contiguous()
+        dt = normed.dtype
+        qkv = F.linear(normed, self.qkv.weight[:, :, 0].to(dt), self.qkv.bias.to(dt)).contiguous()
         scale = float(1.0 / np.sqrt(np.sqrt(head_dim)))
         if t >= 512 and head_dim == attn_ops.HEAD_DIM:
             out = attn_ops.packed_attention(qkv, self.heads, scale)
         else:
             out = attn_ops.reference_attention(qkv, self.heads, scale)
-        out = F.linear(out, self.proj_out.weight[:, :, 0], self.proj_out.bias)
+        out = F.linear(out, self.proj_out.weight[:, :, 0].to(dt), self.proj_out.bias.to(dt))
         return (tokens + out).transpose(1, 2).reshape(b, c, hh, ww)
 
 
@@ -225,13 +245,8 @@ class AdmUnet2d(nn.Module):
                     ds *= 2
                 self.output_blocks.append(EmbedSequential(*layers))
         assert not chans
-        self.out = nn.Sequential(GroupNorm32(num_groups, ch), nn.SiLU(), _conv(ch, out_channels, 3))
-
-        # Torso convolutions and attention projections in the torso type.
-        for blocks in (self.input_blocks, self.middle_block, self.output_blocks):
-            for m in blocks.modules():
-                if isinstance(m, (nn.Conv1d, nn.Conv2d)):
-                    m.to(dtype)
+        self.out = nn.Sequential(GroupNorm32(num_groups, ch), nn.SiLU(),
+                                 _conv(ch, out_channels, 3, zero=True))
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 classes: Optional[torch.Tensor] = None) -> torch.Tensor:

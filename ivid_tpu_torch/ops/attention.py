@@ -1,14 +1,19 @@
-"""Packed-qkv multi-head attention: the CUDA kernel and its plain version.
+"""Packed-qkv multi-head attention: the CUDA kernels, their plain version,
+and the autograd function around them.
 
 The UNet's attention blocks project tokens to one fused ``qkv [B, T, 3C]``
 whose columns are head-major ``[h][q|k|v][D]`` groups (the reference's Conv1d
 channel order). :func:`packed_attention` reads q/k/v straight out of that
 tensor and writes token-major ``[B, T, C]``, so the surrounding projections
-connect without layout copies. On a CUDA tensor it launches
-``csrc/packed_attention.cu`` (which replaces the TPU kernel
-``ivid_tpu/ops/attention.py:_attn_kernel``; the source note there says what
-bounds it and how it is built); on a CPU tensor it runs
-:func:`reference_attention`, the same function in plain PyTorch.
+connect without layout copies. On a CUDA tensor the forward launches
+``csrc/packed_attention.cu`` (K1, which replaces the TPU kernel
+``ivid_tpu/ops/attention.py:_attn_kernel``) and, when a gradient is needed,
+also stores each row's log-sum-exp; the backward launches
+``csrc/packed_attention_bwd.cu`` (K4, which replaces the flash VJP that
+``ivid_tpu/ops/attention.py:_packed_bwd`` calls). The source notes say what
+bounds each and how it is built. On a CPU tensor both directions run
+:func:`reference_attention` under autograd, the same function in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ import torch
 HEAD_DIM = 64
 _LOG2E = math.log2(math.e)
 
-# Kernel launches since the counter was last reset (chip_smoke.py reads it).
+# Kernel launches since the counters were last reset (chip_smoke.py reads
+# them): K1 forward launches and K4 backward launches.
 launches = 0
+bwd_launches = 0
 
 
 def reference_attention(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
@@ -38,45 +45,111 @@ def reference_attention(qkv: torch.Tensor, heads: int, scale: float) -> torch.Te
     return torch.einsum("bhts,bshd->bthd", w, v).reshape(b, t, c)
 
 
-def _launch(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
+def _check(qkv: torch.Tensor, heads: int):
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"packed_attention takes float32 or bfloat16, got {qkv.dtype}")
+    if qkv.shape[-1] != 3 * heads * HEAD_DIM:
+        raise ValueError(
+            f"packed_attention needs {HEAD_DIM}-wide heads: 3C={qkv.shape[-1]}, heads={heads}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("packed_attention needs a contiguous, 16-byte aligned qkv tensor")
+
+
+def _launch(qkv: torch.Tensor, heads: int, scale: float, with_lse: bool = False):
+    """K1: ``out [B, T, C]`` and, with ``with_lse``, the natural log-sum-exp
+    ``lse [B, H, T]`` (f32) of each row's logits ``scale² q·k``."""
     from ivid_tpu_torch import cuda_build
 
     global launches
+    _check(qkv, heads)
     b, t, c3 = qkv.shape
-    c = c3 // 3
-    if qkv.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"packed_attention takes float32 or bfloat16, got {qkv.dtype}")
-    if c3 != 3 * heads * HEAD_DIM:
-        raise ValueError(f"packed_attention needs {HEAD_DIM}-wide heads: 3C={c3}, heads={heads}")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("packed_attention needs a contiguous, 16-byte aligned qkv tensor")
     lib = cuda_build.load("packed_attention")
     fn = lib.packed_attention_fwd_launch
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty((b, t, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((b, heads, t), dtype=torch.float32, device=qkv.device)
+           if with_lse else None)
     qscale = float(scale) * float(scale) * _LOG2E
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
-            qkv.data_ptr(), out.data_ptr(), b, t, heads, qscale,
-            int(qkv.dtype == torch.bfloat16), stream,
+            qkv.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(), b, t, heads,
+            qscale, int(qkv.dtype == torch.bfloat16), stream,
         )
     if rc != 0:
         raise RuntimeError(f"packed_attention kernel launch failed: CUDA error {rc}")
     launches += 1
-    return out
+    return out, lse
+
+
+def _launch_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                heads: int, scale: float) -> torch.Tensor:
+    """K4: ``dqkv [B, T, 3C]`` in the input type from the forward's ``qkv``,
+    ``out`` and ``lse`` and the output gradient ``dout``."""
+    from ivid_tpu_torch import cuda_build
+
+    global bwd_launches
+    _check(qkv, heads)
+    b, t, c3 = qkv.shape
+    if out.shape != (b, t, c3 // 3) or dout.shape != out.shape or lse.shape != (b, heads, t):
+        raise ValueError("packed attention backward: shapes do not fit qkv")
+    if out.dtype != qkv.dtype or dout.dtype != qkv.dtype or lse.dtype != torch.float32:
+        raise TypeError("packed attention backward: out/dout must match qkv, lse must be f32")
+    if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("packed attention backward needs contiguous tensors")
+    if any(x.device != qkv.device for x in (out, dout, lse)):
+        raise ValueError("packed attention backward: tensors on different devices")
+    lib = cuda_build.load("packed_attention_bwd")
+    fn = lib.packed_attention_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((b, heads, t), dtype=torch.float32, device=qkv.device)
+    s2 = float(scale) * float(scale)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(
+            qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dqkv.data_ptr(), b, t, heads, s2 * _LOG2E, s2,
+            int(qkv.dtype == torch.bfloat16), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"packed attention backward launch failed: CUDA error {rc}")
+    bwd_launches += 1
+    return dqkv
+
+
+class _PackedAttention(torch.autograd.Function):
+    """K1 forward with the log-sum-exp kept for K4's backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, scale):
+        out, lse = _launch(qkv, heads, scale, with_lse=True)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.heads, ctx.scale = heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        return _launch_bwd(qkv, out, dout.contiguous(), lse, ctx.heads, ctx.scale), None, None
 
 
 def packed_attention(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
     """Attention over a packed ``[B, T, 3C]`` qkv tensor with 64-wide heads.
-    CUDA tensors go through the kernel (or raise); CPU tensors through
+    CUDA tensors go through the kernels (or raise): K1 alone when no gradient
+    is needed, K1 and K4 under autograd otherwise. CPU tensors go through
     :func:`reference_attention`."""
     if qkv.device.type == "cuda":
-        return _launch(qkv, heads, scale)
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            return _PackedAttention.apply(qkv, heads, scale)
+        return _launch(qkv, heads, scale)[0]
     if qkv.device.type == "cpu":
         return reference_attention(qkv, heads, scale)
     raise ValueError(f"packed_attention: unsupported device {qkv.device}")

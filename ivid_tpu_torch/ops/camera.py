@@ -12,6 +12,26 @@ import numpy as np
 import torch
 
 
+def look_at(eye: torch.Tensor, center: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """Right-handed view matrices [..., 4, 4] (glm.lookAt) from ``eye``,
+    ``center`` and ``up`` [..., 3] (broadcast)."""
+    eye, center, up = torch.broadcast_tensors(eye.float(), center.float(), up.float())
+    f = center - eye
+    f = f / torch.linalg.vector_norm(f, dim=-1, keepdim=True)
+    s = torch.linalg.cross(f, up, dim=-1)
+    s = s / torch.linalg.vector_norm(s, dim=-1, keepdim=True)
+    u = torch.linalg.cross(s, f, dim=-1)
+    dot = lambda a, b: (a * b).sum(dim=-1, keepdim=True)
+    last = torch.zeros(eye.shape[:-1] + (4,), dtype=eye.dtype, device=eye.device)
+    last[..., 3] = 1.0
+    return torch.stack([
+        torch.cat([s, -dot(s, eye)], dim=-1),
+        torch.cat([u, -dot(u, eye)], dim=-1),
+        torch.cat([-f, dot(f, eye)], dim=-1),
+        last,
+    ], dim=-2)
+
+
 def perspective(fov_y_deg: float, aspect: float, near: float, far: float,
                 device=None) -> torch.Tensor:
     """Right-handed perspective projection, NDC z in [-1, 1] (glm.perspective)."""

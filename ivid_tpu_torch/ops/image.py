@@ -1,5 +1,6 @@
-"""Image resampling ops of the condition tail: 8-bit-quantized Lanczos
-downsample, strided SSAA pick, coverage-threshold mask downsample.
+"""Image resampling ops of the condition tail and the warp augments:
+8-bit-quantized Lanczos downsample, strided SSAA pick, coverage-threshold mask
+downsample, and the random-sigma Gaussian blur.
 
 Port of ``ivid_tpu/ops/image.py``. Images are [..., H, W, C]."""
 
@@ -7,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _lanczos3_weights(in_size: int, out_size: int, device) -> torch.Tensor:
@@ -57,3 +59,19 @@ def coverage_mask(mask: torch.Tensor, ssaa: int, threshold: float = 0.75) -> tor
     s = r // ssaa
     m = mask.reshape(mask.shape[:-3] + (s, ssaa, s, ssaa, c)).float().sum(dim=(-4, -2))
     return m > threshold * ssaa * ssaa
+
+
+def gaussian_blur_random_sigma(rng, x: torch.Tensor, kernel_size: int = 3) -> torch.Tensor:
+    """cv2.GaussianBlur of [H, W, C] with sigma ~ U(0, 1) + 1e-3 drawn from
+    the noise source ``rng``, and cv2's default border (reflect-101: mirrored
+    without repeating the edge pixel)."""
+    sigma = rng.uniform(()).to(x.device) + 1e-3
+    half = kernel_size // 2
+    offs = torch.arange(-half, half + 1, dtype=torch.float32, device=x.device)
+    k = torch.exp(-(offs ** 2) / (2 * sigma ** 2))
+    k = k / k.sum()
+    h, w = x.shape[0], x.shape[1]
+    xp = F.pad(x.permute(2, 0, 1)[None], (half, half, half, half), mode="reflect")[0]
+    xp = xp.permute(1, 2, 0)
+    xp = sum(k[i] * xp[i:i + h, :, :] for i in range(kernel_size))
+    return sum(k[i] * xp[:, i:i + w, :] for i in range(kernel_size))

@@ -1,9 +1,11 @@
-"""Per-pixel dense raster of stacked grid meshes: table prep, the CUDA kernel,
-its plain version, and the finish.
+"""Per-pixel dense raster of stacked grid meshes or triangle sets: table
+prep, the CUDA kernel, its plain version, and the finish.
 
-Port of the grid-mesh batched path of ``ivid_tpu/ops/raster_dense.py``:
-:func:`grid_cols` (``_grid_cols_t``) builds per-triangle affine plane
-coefficients straight from grid slices, :func:`prep_pack` (``_prep_pack``)
+Port of the dense paths of ``ivid_tpu/ops/raster_dense.py``: :func:`grid_cols`
+(``_grid_cols_t``) builds per-triangle affine plane coefficients straight
+from grid slices, :func:`tri_cols` (``_planes_from_corners``) the same
+columns for indexed triangles (the warp renders' skirt rings),
+:func:`prep_pack` (``_prep_pack``)
 y-sorts them into 128-triangle chunks with per-row chunk ranges, and
 :func:`raster_rows` z-tests every pixel centre against its row's chunks. On a
 CUDA tensor it launches ``csrc/dense_raster.cu`` (which replaces the TPU kernel
@@ -22,6 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ivid_tpu_torch.ops.geometry import triangulate_face_type
+from ivid_tpu_torch.ops.raster import gather_corners
 
 FAR = 9.0  # empty z-buffer value; valid window z lies in [0, 1]
 TC = 128  # triangles per chunk
@@ -57,7 +60,6 @@ def grid_cols(win, w, attrs, positions, grid_size: int, discard_attr: Optional[i
     of e0, e1, e2, z, D, front), 3A+4 payload columns, all [B, T]."""
     g = grid_size
     B = win.shape[0]
-    A = attrs.shape[-1]
     ft = triangulate_face_type(positions.reshape(B, g, g, 3)).reshape(B, -1)
 
     def corners(vals):
@@ -71,6 +73,30 @@ def grid_cols(win, w, attrs, positions, grid_size: int, discard_attr: Optional[i
         c2 = torch.cat([torch.where(ft, br, bl), torch.where(ft, tl, tr)], dim=1)
         return c0, c1, c2
 
+    return _cols_from_corners(corners, win, w, attrs, discard_attr)
+
+
+def tri_cols(win, w, attrs, tris, discard_attr: Optional[int]):
+    """:func:`grid_cols` for an indexed triangle set (the JAX package's
+    ``_planes_from_corners`` + ``_pallas_prep`` columns): ``win`` [B, V, 3],
+    ``w`` [B, V], ``attrs`` [B, V, A]; ``tris`` [T, 3] shared or [B, T, 3]
+    per buffer, in their own order."""
+    B = win.shape[0]
+    if tris.dim() == 2:
+        tris = tris.expand(B, -1, -1)
+
+    def corners(vals):
+        c = gather_corners(vals[..., None], tris)[..., 0]  # [B, T, 3]
+        return c[..., 0], c[..., 1], c[..., 2]
+
+    return _cols_from_corners(corners, win, w, attrs, discard_attr)
+
+
+def _cols_from_corners(corners, win, w, attrs, discard_attr: Optional[int]):
+    """Plane columns from ``corners(vals [B, V]) -> 3 × [B, T]`` corner values:
+    edge functions, window z, 1/w and attr/w planes, with the invalid-z and
+    backface-discard folds, rounded in the JAX package's order."""
+    A = attrs.shape[-1]
     x0, x1, x2 = corners(win[..., 0])
     y0, y1, y2 = corners(win[..., 1])
     z0, z1, z2 = corners(win[..., 2])
@@ -361,3 +387,56 @@ def rasterize_grid_dense_batched(
     cols = grid_cols(win, w, attrs, positions, grid_size, discard_attr)
     tables = prep_pack(*cols, render_size, A)
     return raster_rows(tables, render_size, A)
+
+
+def rasterize_tris_dense_batched(
+    win: torch.Tensor,
+    w: torch.Tensor,
+    attrs: torch.Tensor,
+    tris: torch.Tensor,
+    render_size: int,
+    discard_attr: Optional[int] = None,
+) -> DenseRaster:
+    """One triangle set per vertex set (e.g. one skirt ring per warp sample)
+    into B stacked framebuffers with one raster launch. ``win`` [B,V,3], ``w``
+    [B,V], ``attrs`` [B,V,A]; ``tris`` [T,3] shared or [B,T,3] per buffer.
+    Buffer b owns flat pixels [b·r², (b+1)·r²), the global ids of the batched
+    fragment resolve, so :func:`merge_dense` applies per buffer."""
+    A = attrs.shape[-1]
+    cols = tri_cols(win, w, attrs, tris, discard_attr)
+    tables = prep_pack(*cols, render_size, A)
+    return raster_rows(tables, render_size, A)
+
+
+def rasterize_tris_dense(
+    win: torch.Tensor,
+    w: torch.Tensor,
+    attrs: torch.Tensor,
+    tris: torch.Tensor,
+    render_size: int,
+    discard_attr: Optional[int] = None,
+) -> DenseRaster:
+    """Exact per-pixel raster of one indexed triangle set: ``win`` [V,3],
+    ``w`` [V], ``attrs`` [V,A], ``tris`` [T,3] (the raster launch at B=1)."""
+    return rasterize_tris_dense_batched(
+        win[None], w[None], attrs[None], tris, render_size, discard_attr
+    )
+
+
+def merge_dense(payload, depth_win, covered, dense_payload, dense: DenseRaster,
+                render_size: int):
+    """Z-test merge of resolved fragment framebuffers (image row order,
+    ``[.., R, R, ·]``) with a dense raster pass over the same buffers (flat
+    window order): the strictly nearer source wins; fragment winners keep
+    ties."""
+    r = render_size
+    lead = depth_win.shape[:-2]
+    d_depth = torch.flip(dense.depth.reshape(lead + (r, r)), dims=[-2])
+    d_cov = torch.flip(dense.covered.reshape(lead + (r, r)), dims=[-2])
+    d_pay = torch.flip(dense_payload.reshape(lead + (r, r, -1)), dims=[-3])
+    use = d_cov & (~covered | (d_depth < depth_win))
+    return (
+        torch.where(use[..., None], d_pay, payload),
+        torch.where(use, d_depth, depth_win),
+        covered | d_cov,
+    )

@@ -1,12 +1,21 @@
-"""Multi-view condition aggregation: the inpainting condition of a novel view
-from a weighted render of the previously generated views. Port of
-``aggregate_conditions(_batch)`` and ``_condition_tail`` of
-``ivid_tpu/ops/warp.py``."""
+"""The two geometry pipelines of ``ivid_tpu/ops/warp.py``.
+
+- Multi-view condition aggregation (``aggregate_conditions(_batch)``,
+  ``_condition_tail``): the inpainting condition of a novel view from a
+  weighted render of the previously generated views.
+- The forward-backward warp (``forward_backward_warp(_batch)``) that
+  synthesizes the cond model's training pairs from still RGBD images: lift to
+  a mesh, render from a jittered pose, re-lift, render back, and mask
+  under-covered and depth-edge pixels.
+"""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from ivid_tpu_torch.ops import camera as cam
 from ivid_tpu_torch.ops import geometry as geom
 from ivid_tpu_torch.ops import image as im
 from ivid_tpu_torch.ops import renderer as rend
@@ -71,3 +80,70 @@ def _condition_tail(res, s, ssaa, near, far, mode, atol, rtol, erode_rgb):
         "mask_rgb": mask_rgbf,
         "depth_convex": depth_convex,
     }
+
+
+def default_modelview(device=None) -> torch.Tensor:
+    """The canonical first-view camera at (0, 0, 1) looking at the origin."""
+    return cam.look_at(torch.tensor([0.0, 0.0, 1.0], device=device),
+                       torch.zeros(3, device=device),
+                       torch.tensor([0.0, 1.0, 0.0], device=device))
+
+
+def forward_backward_warp_batch(
+    rgbd: torch.Tensor,
+    modelview1: torch.Tensor,
+    modelview0: Optional[torch.Tensor] = None,
+    padding=None,
+    fov: float = 45.0,
+    near: float = 0.5,
+    far: float = 100.0,
+    mode: str = "z_buffer",
+    atol: float = 0.02,
+    rtol: float = 0.02,
+    ssaa: int = 3,
+    render_near: float = 0.1,
+    render_far: float = 200.0,
+) -> dict:
+    """Warp B RGBD images to their ``modelview1`` and back, two batched
+    renders for the whole batch. ``rgbd`` [B,s,s,4] with color in [0,1] and
+    depth stored per ``mode`` in [0,1]; ``modelview1`` [B,4,4]
+    (``modelview0`` likewise, default canonical). The first view is lifted
+    with a ``padding`` skirt, rendered from view 1 at ``s·ssaa``, re-lifted
+    with discontinuity flags and rendered back. Returns ``color``/``depth``/
+    ``mask`` [B,s,s,·] with unseen pixels zeroed."""
+    B, s = rgbd.shape[0], rgbd.shape[1]
+    r = s * ssaa
+    if modelview0 is None:
+        modelview0 = default_modelview(rgbd.device).expand(B, 4, 4)
+    mesh0 = geom.stack_meshes([
+        geom.depth_to_mesh(geom.linearize_depth(rgbd[i, ..., 3:], near, far, mode),
+                           padding=padding, fov=fov, modelview=modelview0[i])
+        for i in range(B)
+    ])
+    res = rend.render_simple_batch(mesh0, rgbd[..., :3], modelview1, fov, r,
+                                   render_near, render_far, has_skirt=padding is not None)
+    color1 = im.resize_lanczos_8bit(res["color"], s)
+    depth1 = im.ssaa_subsample(res["depth"], ssaa)
+
+    mesh1 = geom.stack_meshes([
+        geom.depth_to_mesh(depth1[i], padding=None, fov=fov, modelview=modelview1[i],
+                           atol=atol, rtol=rtol)
+        for i in range(B)
+    ])
+    res = rend.render_simple_batch(mesh1, color1, modelview0, fov, r,
+                                   render_near, render_far, has_skirt=False)
+    color = im.resize_lanczos_8bit(res["color"], s)
+    depth = geom.project_depth(im.ssaa_subsample(res["depth"], ssaa), near, far, mode)
+    mask = im.coverage_mask(res["mask"], ssaa) & geom.depth_edge(depth, atol=atol, rtol=rtol)
+    maskf = mask.float()
+    return {"color": color * maskf, "depth": depth * maskf, "mask": maskf}
+
+
+def forward_backward_warp(rgbd: torch.Tensor, modelview1: torch.Tensor,
+                          modelview0: Optional[torch.Tensor] = None, **kwargs) -> dict:
+    """:func:`forward_backward_warp_batch` for one [s,s,4] image and
+    [4,4] cameras."""
+    res = forward_backward_warp_batch(
+        rgbd[None], modelview1[None], None if modelview0 is None else modelview0[None], **kwargs
+    )
+    return {k: v[0] for k, v in res.items()}

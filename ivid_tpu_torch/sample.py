@@ -1,6 +1,7 @@
 """Multiview RGBD scene sampling CLI: ``python -m ivid_tpu_torch.sample``.
 
-The port of the repo's ``sample.py``, with its flags, plus ``--device``. Two
+The port of the repo's ``sample.py``, with its flags, plus ``--device``
+(default ``cuda``; ``cpu`` runs the kernels' plain versions). Two
 configs (uncond + cond), seeds or num_samples, class selection, viewsets
 ``uncond``/``random``/``3x9``, and the output tree
 ``{output_dir}/viewset_{v}_steps_u{u}_c{c}_guidance{g}/{scenes,conds,grids,results}``
@@ -47,8 +48,7 @@ def parse_args(argv=None):
                    help="Aggregate only the K angularly-nearest prior views per novel "
                         "view (default: all). Lossy: dropped views change the depth "
                         "and mask conditioning")
-    p.add_argument("--device", type=str,
-                   default="cuda" if torch.cuda.is_available() else "cpu")
+    p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
 

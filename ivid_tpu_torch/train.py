@@ -1,0 +1,80 @@
+"""Training CLI: ``python -m ivid_tpu_torch.train --config CONFIG``.
+
+The port of the repo's ``train.py`` on one device: a JSON config
+(``backbone``/``framework``/``dataset``/``trainer``), the dataset, backbone,
+framework and trainer built from their registries, an optional resume
+(``--ckpt STEP`` or ``latest``, from ``--load_dir`` or the run directory),
+and the run directory ``{output_dir}/{config name}`` with ``command.txt``,
+``config.json``, ``log.txt``, ``ckpts/`` and ``samples/``. ``--device``
+(default ``cuda``) picks the device; the CPU runs the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", type=str, required=True, help="config JSON file")
+    p.add_argument("--output_dir", type=str, default="results", help="output root")
+    p.add_argument("--data_dir", type=str, default="data", help="dataset root")
+    p.add_argument("--load_dir", type=str, default=None)
+    p.add_argument("--ckpt", type=str, default=None, help="step to resume, or 'latest'")
+    p.add_argument("--max_steps", type=int, default=None, help="override the config")
+    p.add_argument("--device", type=str, default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None, record=None):
+    """Build everything, resume if asked, train; returns the trainer.
+    ``record``, a ``StepRecord``, keeps the run's per-step losses (and
+    times)."""
+    opt = parse_args(argv)
+    from ivid_tpu_torch.config import Config, build_backbone, build_framework_from_config
+    from ivid_tpu_torch.data import build_dataset
+    from ivid_tpu_torch.training import checkpoint as ckpt_io
+    from ivid_tpu_torch.training.trainer import TRAINERS
+
+    device = torch.device(opt.device)
+    cfg = Config.load(opt.config)
+    name = os.path.splitext(os.path.basename(opt.config))[0]
+    output_dir = os.path.join(opt.output_dir, name)
+    os.makedirs(output_dir, exist_ok=True)
+
+    dataset = build_dataset(cfg.dataset, opt.data_dir)
+    cfg.resolve_num_classes(dataset.num_classes)
+    trainer_args = dict(cfg.trainer.get("args", {}))
+    if opt.max_steps is not None:
+        trainer_args["max_steps"] = opt.max_steps
+    if cfg.trainer["name"] not in TRAINERS:
+        raise NotImplementedError(f"trainer {cfg.trainer['name']!r} is not ported yet")
+    trainer_cls = TRAINERS[cfg.trainer["name"]]
+
+    # The initial weights follow the trainer's seed.
+    torch.manual_seed(int(trainer_args.get("seed", 0)))
+    model = build_backbone(cfg).to(device)
+    framework = build_framework_from_config(cfg, model, device=device)
+    trainer = trainer_cls(framework, dataset, output_dir, device=device, **trainer_args)
+    trainer.record = record
+
+    with open(os.path.join(output_dir, "command.txt"), "a") as f:
+        print(" ".join(sys.argv if argv is None else ["ivid_tpu_torch.train", *argv]), file=f)
+    cfg.save(os.path.join(output_dir, "config.json"))
+
+    step = opt.ckpt
+    if step == "latest":
+        step = ckpt_io.find_latest_step(opt.load_dir or output_dir)
+    if step is not None:
+        trainer.load(opt.load_dir or output_dir, int(step))
+        print(f"Resumed from step {trainer.step}")
+    trainer.run()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -116,15 +116,25 @@ def test_forward_matches_jax(cfg, monkeypatch):
 
 
 def test_fresh_model_dtypes():
-    """bf16 torso: convolutions and attention projections in bf16; norms,
-    embedding MLP and the output head in f32."""
+    """bf16 torso: every parameter is an f32 master weight; the convolutions
+    and attention projections compute in bf16, the embedding MLP and the
+    output head in f32. A fresh model predicts exactly zero (the reference's
+    zero-initialized output layers)."""
     port = adm.build_adm_unet(PACKED)
-    assert port.input_blocks[1][0].in_layers[2].weight.dtype == torch.bfloat16
-    assert port.input_blocks[1][1].qkv.weight.dtype == torch.bfloat16
-    assert port.input_blocks[1][0].in_layers[0].weight.dtype == torch.float32
-    assert port.time_embed[1].weight.dtype == torch.float32
-    assert port.out[2].weight.dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in port.parameters())
+    seen = {}
+
+    def hook(name):
+        return lambda module, args, out: seen.__setitem__(name, out.dtype)
+
+    port.input_blocks[1][0].in_layers[2].register_forward_hook(hook("conv"))
+    port.input_blocks[1][0].skip_connection.register_forward_hook(hook("skip"))
+    port.input_blocks[1][1].norm.register_forward_hook(hook("attn_norm"))
+    port.time_embed[1].register_forward_hook(hook("embed"))
+    port.out[2].register_forward_hook(hook("head"))
     x = torch.randn(1, 32, 32, 4)
     with torch.no_grad():
         y = port(x, torch.tensor([5]))
-    assert y.dtype == torch.float32 and torch.isfinite(y).all()
+    assert seen == {"conv": torch.bfloat16, "skip": torch.bfloat16, "attn_norm": torch.bfloat16,
+                    "embed": torch.float32, "head": torch.float32}
+    assert y.dtype == torch.float32 and torch.equal(y, torch.zeros_like(y))

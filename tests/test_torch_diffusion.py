@@ -43,20 +43,26 @@ ARCH_KEYS = ["image_size", "model_channels", "num_res_blocks", "channel_mult",
 
 
 class JaxReplayNoise:
-    """Noise source replaying ``jax.random``: split/fold_in/normal on a key."""
+    """Noise source replaying ``jax.random``: split/fold_in and the
+    normal/uniform/randint draws on a key."""
 
     def __init__(self, key):
         self.key = key
 
-    def split(self):
-        a, b = jax.random.split(self.key)
-        return JaxReplayNoise(a), JaxReplayNoise(b)
+    def split(self, num=2):
+        return tuple(JaxReplayNoise(k) for k in jax.random.split(self.key, num))
 
     def fold_in(self, i):
         return JaxReplayNoise(jax.random.fold_in(self.key, i))
 
     def normal(self, shape):
         return torch.from_numpy(np.array(jax.random.normal(self.key, tuple(shape))))
+
+    def uniform(self, shape):
+        return torch.from_numpy(np.array(jax.random.uniform(self.key, tuple(shape))))
+
+    def randint(self, shape, low, high):
+        return torch.from_numpy(np.array(jax.random.randint(self.key, tuple(shape), low, high))).long()
 
 
 def model_pair(cfg, seed, out_scale=1.0):
@@ -170,3 +176,9 @@ def test_torch_noise_is_seeded_and_sequential():
     x1, x2 = a.split()[1].normal((3,)), a.fold_in(9).normal((3,))
     assert torch.equal(x1, b.normal((3,))) and torch.equal(x2, b.normal((3,)))
     assert not torch.equal(x1, x2)
+    assert len(a.split(8)) == 8
+    state = a.state_dict()
+    u, i = a.uniform((4,)), a.randint((4,), 0, 5)
+    assert ((u >= 0) & (u < 1)).all() and ((i >= 0) & (i < 5)).all() and i.dtype == torch.int64
+    a.load_state_dict(state)
+    assert torch.equal(u, a.uniform((4,))) and torch.equal(i, a.randint((4,), 0, 5))

@@ -103,3 +103,12 @@ def test_png_writer_matches_jax(tmp_path, channels):
         got = imageio.imread(tmp_path / "pg.png")
         assert got.shape == (2 * 8 + 2, 3 * 8 + 2, 3)
         np.testing.assert_array_equal(got, imageio.imread(tmp_path / "jg.png"))
+
+
+def test_cli_device_defaults_to_cuda():
+    """The CLIs run on the card unless the caller asks for the CPU."""
+    from ivid_tpu_torch import sample, train
+
+    assert sample.parse_args([]).device == "cuda"
+    assert sample.parse_args(["--device", "cpu"]).device == "cpu"
+    assert train.parse_args(["--config", "c.json"]).device == "cuda"
