@@ -8,16 +8,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    per source, all at once;
 2. K1 (packed attention) against its plain version at [2, 1024, 768] (the
    sampling shape) and [8, 1024, 768] (the training forward's), 4 heads, in
-   bf16 and f32, with the log-sum-exp it stores for training, timed beside
-   the plain version and torch's scaled_dot_product_attention on the
-   unpacked layout;
+   bf16 and f32, with the log-sum-exp it stores for training held to its
+   plain version too, timed beside the plain version and torch's
+   scaled_dot_product_attention on the unpacked layout (each also by the
+   profiler's fallback, calls queued behind a spin kernel, as a
+   cross-check of the two device-time readings); then the same checks
+   at the SR cascade's shapes [2, 4096, 768] (T=4096) and [2, 1024, 1152]
+   (6 heads);
 3. K2 (dense grid raster) against its plain version on live aggregation
    slots: four 128² seeded RGBD meshes rendered at r=384 from an orbit view;
 4. K3 (z-buffer resolve) against its plain version on the first warp render
    of a training step: 8 SyntheticRGBDWarp 128² items at r=384;
 5. K2 on indexed triangles (the same render's skirt rings) at B=8 and B=1;
-6. K4 (packed attention backward) against autograd of the plain version at
-   the training shape [8, 1024, 768], 4 heads, bf16 and f32;
+6. K4 (packed attention backward) against autograd of the plain version
+   and against its plain formula form at the training shape [8, 1024, 768],
+   4 heads, and at the SR shapes, bf16 and f32;
 7. the full-width single-category UNet (random seeded weights, batch 2) on
    the card with K1 in f32 against the same weights on the CPU plain path;
 8. a small 3-view sampling chain (32² f32 UNets, K1 and K2 on its path) on
@@ -38,6 +43,15 @@ Each main path (10, 11) runs with every launch counter set to 0 just before
 it and read just after. Then one JSON line with every kernel's numbers, the
 nvidia-smi line, and the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
+
+Times (``ivid_tpu_torch.timing``): a kernel's ``ms`` and the library call's
+``library_ms`` are device time, the durations torch.profiler records for
+what 20 warmed-up calls ran on the device, per call, or, when two profiler
+sessions record none of it, CUDA events around 20 calls queued behind a spin
+kernel (a ``[timing]`` line says so, and the count of such readings is
+printed before the kernels line); ``host_ms`` is CUDA events around 20 such
+calls, which measure the host's issue time whenever that is longer.
+``plain_ms`` and the prep times are CUDA events.
 """
 
 import json
@@ -108,19 +122,24 @@ def nvidia_smi_line():
 
 
 def cuda_time_ms(fn, reps=20, warmup=3):
-    import torch
+    """Milliseconds per call by CUDA events around ``reps`` calls."""
+    from ivid_tpu_torch import timing
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return timing.host_ms(fn, reps, warmup)
+
+
+def timed(fn, match=None):
+    """(device ms, host ms) per call of ``fn``: device time from
+    torch.profiler (only activities whose name holds ``match``, if given)
+    and CUDA events around the calls."""
+    from ivid_tpu_torch import timing
+
+    before = timing.fallbacks
+    ms = timing.device_ms(fn, match=match)
+    if timing.fallbacks != before:
+        log(f"[timing] torch.profiler recorded no usable session; device time {ms:.4f} ms "
+            f"read by CUDA events around calls queued behind a spin kernel")
+    return ms, timing.host_ms(fn)
 
 
 def phase_device():
@@ -129,8 +148,10 @@ def phase_device():
     pkg = os.path.dirname(cuda_build.__file__)
     if os.path.dirname(pkg) != ROOT:
         raise RuntimeError(f"ivid_tpu_torch imported from {pkg}, not from this checkout")
+    import torch
+
     smi = nvidia_smi_line()
-    log(f"[device] {smi}")
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     cuda_build.build(KERNELS)
     for name in KERNELS:
@@ -163,33 +184,27 @@ def attention_bound_ms(b, t, heads, dtype, backward=False):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def lse_reference(qkv, heads, scale):
-    """Per-row log-sum-exp of the f32 logits, [B, H, T]."""
-    import torch
-
-    b, t, d = qkv.shape[0], qkv.shape[1], 64
-    q, k, _ = qkv.float().reshape(b, t, heads, 3 * d).split(d, dim=-1)
-    return torch.logsumexp(torch.einsum("bthd,bshd->bhts", q, k) * scale * scale, dim=-1)
-
-
-def phase_attention(b, seed, training):
-    """K1 at [b, 1024, 768], 4 heads: b=2 is the sampling shape; b=8 with
-    ``training`` the training forward's, which also writes the log-sum-exp,
-    so the entry's ``ms`` is the kernel's with it."""
+def phase_attention(b, seed, training, t=1024, heads=4, time_f32=True):
+    """K1 at [b, t, 3·heads·64]: b=2 at T=1024 with 4 heads is the sampling
+    shape; b=8 with ``training`` the training forward's, which also writes
+    the log-sum-exp, so the entry's ``ms`` is the kernel's with it; T=4096
+    and 6 heads are the SR cascade's shapes."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
+    from ivid_tpu_torch import timing
     from ivid_tpu_torch.ops import attention
 
     dev = torch.device("cuda")
-    t, heads, d = 1024, 4, 64
+    d = 64
     c = heads * d
     scale = float(d ** -0.25)
     qkv32 = torch.from_numpy(
         np.random.default_rng(seed).standard_normal((b, t, 3 * c)).astype(np.float32)
     ).to(dev)
     qkv16 = qkv32.to(torch.bfloat16)
+    tag = f"[K1] [{b},{t},{3 * c}] {heads} heads"
 
     got16, lse16 = attention._launch(qkv16, heads, scale, with_lse=True)
     want16 = attention.reference_attention(qkv16.float(), heads, scale)
@@ -198,11 +213,12 @@ def phase_attention(b, seed, training):
     want32 = attention.reference_attention(qkv32, heads, scale)
     err32 = (got32 - want32).abs()
 
-    lse_err = max((lse16 - lse_reference(qkv16, heads, scale)).abs().max().item(),
-                  (lse32 - lse_reference(qkv32, heads, scale)).abs().max().item())
+    lse_err = max((lse16 - attention.logsumexp_reference(qkv16, heads, scale)).abs().max().item(),
+                  (lse32 - attention.logsumexp_reference(qkv32, heads, scale)).abs().max().item())
     torch.cuda.synchronize()
     max16, mean16, max32 = err16.max().item(), err16.mean().item(), err32.max().item()
-    log(f"[K1] [{b},{t},{3 * c}] bf16 max|err| {max16:.3e} (<= {K1_BF16_MAX}) mean {mean16:.3e} "
+    del want16, want32, err16, err32
+    log(f"{tag}: bf16 max|err| {max16:.3e} (<= {K1_BF16_MAX}) mean {mean16:.3e} "
         f"(<= {K1_BF16_MEAN}); f32 max|err| {max32:.3e} (<= {K1_F32_MAX}); "
         f"log-sum-exp max|err| {lse_err:.3e} (<= {K1_LSE_MAX})")
     if not (max16 <= K1_BF16_MAX and mean16 <= K1_BF16_MEAN and max32 <= K1_F32_MAX
@@ -211,28 +227,39 @@ def phase_attention(b, seed, training):
 
     q, k, v = qkv16.reshape(b, t, heads, 3 * d).split(d, dim=-1)
     q, k, v = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ms = cuda_time_ms(lambda: attention.packed_attention(qkv16, heads, scale))
-    lse_ms = cuda_time_ms(lambda: attention._launch(qkv16, heads, scale, with_lse=True))
+    ms, host = timed(lambda: attention.packed_attention(qkv16, heads, scale))
+    lse_ms, lse_host = timed(lambda: attention._launch(qkv16, heads, scale, with_lse=True))
     plain_ms = cuda_time_ms(lambda: attention.reference_attention(qkv16, heads, scale))
-    sdpa_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-    ms32 = cuda_time_ms(lambda: attention.packed_attention(qkv32, heads, scale))
-    plain32_ms = cuda_time_ms(lambda: attention.reference_attention(qkv32, heads, scale))
+    sdpa_ms, sdpa_host = timed(lambda: F.scaled_dot_product_attention(q, k, v))
+    # The other device-time reading (the profiler's fallback), as a cross-check.
+    queued = timing.queued_ms(lambda: attention.packed_attention(qkv16, heads, scale))
+    sdpa_queued = timing.queued_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     bound, bound_by = attention_bound_ms(b, t, heads, torch.bfloat16)
     bound32, _ = attention_bound_ms(b, t, heads, torch.float32)
-    log(f"[K1] [{b},{t},{3 * c}] 4 heads bf16: kernel {ms:.4f} ms (with log-sum-exp {lse_ms:.4f} ms, "
-        f"bound {bound:.4f} ms by {bound_by}), plain {plain_ms:.4f} ms, "
-        f"SDPA (unpacked, timing only) {sdpa_ms:.4f} ms; f32: kernel {ms32:.4f} ms "
-        f"(bound {bound32:.4f} ms), plain {plain32_ms:.4f} ms")
-    return {
+    entry = {
         "name": "packed_attention_train" if training else "packed_attention", "route": "cuda",
         "source": "ivid_tpu_torch/csrc/packed_attention.cu",
         "replaces": "ivid_tpu/ops/attention.py:167",
-        "max_abs_err": max16, "ms": lse_ms if training else ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": sdpa_ms, "shape": [b, t, 3 * c],
-        "no_lse_ms": ms, "lse_ms": lse_ms, "lse_max_abs_err": lse_err,
-        "f32_max_abs_err": max32, "f32_ms": ms32, "f32_plain_ms": plain32_ms,
-        "f32_bound_ms": bound32,
+        "max_abs_err": max16, "ms": lse_ms if training else ms,
+        "host_ms": lse_host if training else host, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": sdpa_ms,
+        "library_host_ms": sdpa_host, "queued_ms": queued, "library_queued_ms": sdpa_queued,
+        "shape": [b, t, 3 * c], "heads": heads, "no_lse_ms": ms, "lse_ms": lse_ms, "lse_max_abs_err": lse_err,
+        "f32_max_abs_err": max32, "f32_bound_ms": bound32,
     }
+    f32 = ""
+    if time_f32:
+        ms32, host32 = timed(lambda: attention.packed_attention(qkv32, heads, scale))
+        plain32_ms = cuda_time_ms(lambda: attention.reference_attention(qkv32, heads, scale))
+        entry.update(f32_ms=ms32, f32_host_ms=host32, f32_plain_ms=plain32_ms)
+        f32 = (f"; f32: kernel {ms32:.4f} ms (host {host32:.4f}, bound {bound32:.4f} ms), "
+               f"plain {plain32_ms:.4f} ms")
+    log(f"{tag} bf16: kernel {ms:.4f} ms device, {host:.4f} host (with log-sum-exp "
+        f"{lse_ms:.4f} / {lse_host:.4f}; bound {bound:.4f} ms by {bound_by}), plain "
+        f"{plain_ms:.4f} ms, SDPA (unpacked, timing only) {sdpa_ms:.4f} device, "
+        f"{sdpa_host:.4f} host; queued behind a spin: kernel {queued:.4f}, SDPA "
+        f"{sdpa_queued:.4f}{f32}")
+    return entry
 
 
 def live_slots(dev, n=4, s=128, seed=0):
@@ -325,21 +352,22 @@ def phase_raster():
     log(f"[K2] {n} slots x {r}² ({g}² grid, {cols[0][0].shape[1]} tris/slot, "
         f"{tables[3].shape[1] // 8} chunks/slot)")
     attr_err, mismatch = compare_dense(got, want, "K2")
-    ms = cuda_time_ms(lambda: raster_dense._launch(tables, r, A))
+    ms, host = timed(lambda: raster_dense._launch(tables, r, A), match="dense_raster")
     finish_ms = cuda_time_ms(lambda: raster_dense.raster_rows(tables, r, A))
     plain_ms = cuda_time_ms(lambda: raster_dense.raster_rows_reference(tables, r, A), reps=3, warmup=1)
     prep_ms = cuda_time_ms(lambda: raster_dense.prep_pack(
         *raster_dense.grid_cols(win, w, attrs, meshes.positions, g, 3), r, A))
     bound, bound_by = k2_bound_ms(tables, r)
-    log(f"[K2] {n} slots: kernel {ms:.4f} ms ({ms / n:.4f} ms/slot; bound {bound:.4f} ms by "
-        f"{bound_by}), kernel+finish {finish_ms:.4f} ms, plain+finish {plain_ms:.4f} ms, "
+    log(f"[K2] {n} slots: kernel {ms:.4f} ms device ({ms / n:.4f} ms/slot; host {host:.4f} ms; "
+        f"bound {bound:.4f} ms by {bound_by}), kernel+finish {finish_ms:.4f} ms, plain+finish {plain_ms:.4f} ms, "
         f"table prep (torch) {prep_ms:.4f} ms")
     return {
         "name": "dense_raster", "route": "cuda",
         "source": "ivid_tpu_torch/csrc/dense_raster.cu",
         "replaces": "ivid_tpu/ops/raster_dense.py:467",
-        "max_abs_err": attr_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": bound_by, "library_ms": None, "mismatch_frac": mismatch, "slots": n,
+        "max_abs_err": attr_err, "ms": ms, "host_ms": host, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "mismatch_frac": mismatch,
+        "slots": n,
         "with_finish_ms": finish_ms, "prep_ms": prep_ms,
     }
 
@@ -396,21 +424,21 @@ def phase_resolve():
     if cov_bad or depth_bad or not pay_err <= K3_PAY_MAX:
         raise RuntimeError("K3 disagrees with its plain version")
     prepared = raster_tiled.prepare(frags, pay, r, B)
-    ms = cuda_time_ms(lambda: raster_tiled.launch(*prepared, r, B))
+    ms, host = timed(lambda: raster_tiled.launch(*prepared, r, B), match="zbuffer_resolve")
     prep_ms = cuda_time_ms(lambda: raster_tiled.prepare(frags, pay, r, B))
     plain_ms = cuda_time_ms(lambda: raster.resolve_zbuffer_scatter(frags, pay, r, B))
     npix, k = B * r * r, pay[0].shape[-1]
     nbytes = (npix + 1) * 4 + n_valid * (4 + 16) + npix * (4 * k + 4 + 1)
     bound = nbytes / PEAK_BYTES * 1e3
-    log(f"[K3] kernel {ms:.4f} ms (bound {bound:.4f} ms by bytes: {nbytes / 1e6:.1f} MB), "
+    log(f"[K3] kernel {ms:.4f} ms device, {host:.4f} host (bound {bound:.4f} ms by bytes: {nbytes / 1e6:.1f} MB), "
         f"sort/search prep (torch) {prep_ms:.4f} ms, plain version (two scatters) "
         f"{plain_ms:.4f} ms")
     return {
         "name": "zbuffer_resolve", "route": "cuda",
         "source": "ivid_tpu_torch/csrc/zbuffer_resolve.cu",
         "replaces": "ivid_tpu/ops/raster_tiled.py:52",
-        "max_abs_err": pay_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": "bytes", "library_ms": None, "prep_ms": prep_ms,
+        "max_abs_err": pay_err, "ms": ms, "host_ms": host, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": None, "prep_ms": prep_ms,
         "fragments": n_frag, "valid_fragments": n_valid, "buffers": B,
     }, f, r
 
@@ -428,13 +456,13 @@ def phase_skirt(f, r):
         want = raster_dense.raster_rows_reference(tables, r, A)
         log(f"[{tag}] {win.shape[0]} rings of {ring.shape[1]} triangles at {r}²")
         attr_err, mismatch = compare_dense(got, want, tag)
-        ms = cuda_time_ms(lambda: raster_dense._launch(tables, r, A))
+        ms, host = timed(lambda: raster_dense._launch(tables, r, A), match="dense_raster")
         plain_ms = cuda_time_ms(lambda: raster_dense.raster_rows_reference(tables, r, A),
                                 reps=3, warmup=1)
         prep_ms = cuda_time_ms(lambda: raster_dense.prep_pack(
             *raster_dense.tri_cols(win, w, attrs, ring, None), r, A))
         bound, bound_by = k2_bound_ms(tables, r)
-        log(f"[{tag}] kernel {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}), plain+finish "
+        log(f"[{tag}] kernel {ms:.4f} ms device, {host:.4f} host (bound {bound:.4f} ms by {bound_by}), plain+finish "
             f"{plain_ms:.4f} ms, table prep (torch) {prep_ms:.4f} ms")
         b1 = win.shape[0] == 1
         out.append({
@@ -442,14 +470,18 @@ def phase_skirt(f, r):
             "source": "ivid_tpu_torch/csrc/dense_raster.cu",
             "replaces": "ivid_tpu/ops/raster_dense.py:458" if b1
             else "ivid_tpu/ops/raster_dense.py:467",
-            "max_abs_err": attr_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": None, "mismatch_frac": mismatch,
-            "prep_ms": prep_ms, "buffers": win.shape[0],
+            "max_abs_err": attr_err, "ms": ms, "host_ms": host, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "mismatch_frac": mismatch, "prep_ms": prep_ms, "buffers": win.shape[0],
         })
     return out
 
 
-def phase_attention_backward():
+def phase_attention_backward(b=8, t=1024, heads=4, seed=3, time_f32=True):
+    """K4 at [b, t, 3·heads·64] against autograd of the plain version and
+    against the plain formula form (``attention_backward_reference``) on the
+    forward's own outputs, bf16 and f32; timed beside the plain backward and
+    SDPA's backward."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -458,12 +490,13 @@ def phase_attention_backward():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    b, t, heads, d = 8, 1024, 4, 64
+    d = 64
     c = heads * d
     scale = float(d ** -0.25)
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     qkv32 = torch.from_numpy(rng.standard_normal((b, t, 3 * c)).astype(np.float32)).to(dev)
     dout32 = torch.from_numpy(rng.standard_normal((b, t, c)).astype(np.float32)).to(dev)
+    tag = f"[K4] [{b},{t},{3 * c}] {heads} heads"
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
         qkv = qkv32.to(dtype).requires_grad_()
@@ -474,43 +507,68 @@ def phase_attention_backward():
         ref_out = attention.reference_attention(ref_in, heads, scale)
         (want,) = torch.autograd.grad(ref_out, ref_in, dout.float())
         err = (got.float() - want).abs()
-        res[dtype] = (err.max().item(), (err.norm() / want.norm()).item())
-
-        # Timing: K4 alone on the forward's saved outputs; the plain version's
-        # and SDPA's backward alone, each on a graph built once.
+        r = {"max": err.max().item(), "rel": ((got.float() - want).norm() / want.norm()).item()}
+        del ref_in, ref_out, want, err
+        # The formula form on the same forward outputs the kernel read.
         o, lse = attention._launch(qkv.detach(), heads, scale, with_lse=True)
-        ms = cuda_time_ms(lambda: attention._launch_bwd(qkv.detach(), o, dout, lse, heads, scale))
-        plain_in = qkv.detach().requires_grad_()
-        plain_out = attention.reference_attention(plain_in, heads, scale)
-        plain_ms = cuda_time_ms(lambda: torch.autograd.grad(plain_out, plain_in, dout,
-                                                            retain_graph=True))
-        q, k, v = qkv.detach().reshape(b, t, heads, 3 * d).split(d, dim=-1)
-        q, k, v = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-        sdpa_out = F.scaled_dot_product_attention(q, k, v)
-        g4 = dout.reshape(b, t, heads, d).transpose(1, 2).contiguous()
-        sdpa_ms = cuda_time_ms(lambda: torch.autograd.grad(sdpa_out, (q, k, v), g4,
-                                                           retain_graph=True))
-        bound, bound_by = attention_bound_ms(b, t, heads, dtype, backward=True)
-        res[dtype] += (ms, plain_ms, sdpa_ms, bound, bound_by)
-    (m16, r16, ms16, p16, s16, b16, by16), (m32, r32, ms32, p32, s32, b32, _) = (
-        res[torch.bfloat16], res[torch.float32])
-    log(f"[K4] [8,1024,768] 4 heads: bf16 rel L2 {r16:.3e} (<= {K4_BF16_REL}), max|err| "
-        f"{m16:.3e}; f32 max|err| {m32:.3e} (<= {K4_F32_MAX}), rel L2 {r32:.3e}")
-    log(f"[K4] bf16: kernel {ms16:.4f} ms (bound {b16:.4f} ms by {by16}), plain backward "
-        f"{p16:.4f} ms, SDPA backward (unpacked, timing only) {s16:.4f} ms; f32: kernel "
-        f"{ms32:.4f} ms (bound {b32:.4f} ms), plain backward {p32:.4f} ms, SDPA backward "
-        f"{s32:.4f} ms")
-    if not (r16 <= K4_BF16_REL and m32 <= K4_F32_MAX):
-        raise RuntimeError("K4 disagrees with autograd of the plain version")
-    return {
+        k4 = attention._launch_bwd(qkv.detach(), o, dout, lse, heads, scale)
+        form = attention.attention_backward_reference(qkv.detach().float(), o.float(),
+                                                      dout.float(), lse, heads, scale)
+        ferr = (k4.float() - form).abs()
+        r.update(form_max=ferr.max().item(),
+                 form_rel=((k4.float() - form).norm() / form.norm()).item())
+        del form, ferr, k4
+        if dtype == torch.bfloat16 or time_f32:
+            # Timing: K4 alone on the forward's saved outputs; the plain
+            # version's and SDPA's backward alone, each on a graph built once.
+            r["ms"], r["host"] = timed(
+                lambda: attention._launch_bwd(qkv.detach(), o, dout, lse, heads, scale))
+            plain_in = qkv.detach().requires_grad_()
+            plain_out = attention.reference_attention(plain_in, heads, scale)
+            r["plain"] = cuda_time_ms(lambda: torch.autograd.grad(plain_out, plain_in, dout,
+                                                                  retain_graph=True))
+            del plain_out
+            q, k, v = qkv.detach().reshape(b, t, heads, 3 * d).split(d, dim=-1)
+            q, k, v = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(q, k, v)
+            g4 = dout.reshape(b, t, heads, d).transpose(1, 2).contiguous()
+            r["sdpa"], r["sdpa_host"] = timed(
+                lambda: torch.autograd.grad(sdpa_out, (q, k, v), g4, retain_graph=True))
+            del sdpa_out
+        r["bound"], r["bound_by"] = attention_bound_ms(b, t, heads, dtype, backward=True)
+        res[dtype] = r
+    r16, r32 = res[torch.bfloat16], res[torch.float32]
+    log(f"{tag}: bf16 rel L2 {r16['rel']:.3e} (<= {K4_BF16_REL}), max|err| {r16['max']:.3e}; "
+        f"f32 max|err| {r32['max']:.3e} (<= {K4_F32_MAX}), rel L2 {r32['rel']:.3e}; against "
+        f"the formula form: bf16 rel L2 {r16['form_rel']:.3e} (<= {K4_BF16_REL}), f32 "
+        f"max|err| {r32['form_max']:.3e} (<= {K4_F32_MAX})")
+    f32 = ""
+    if time_f32:
+        f32 = (f"; f32: kernel {r32['ms']:.4f} ms device, {r32['host']:.4f} host (bound "
+               f"{r32['bound']:.4f} ms), plain backward {r32['plain']:.4f} ms, SDPA backward "
+               f"{r32['sdpa']:.4f} device")
+    log(f"{tag} bf16: kernel {r16['ms']:.4f} ms device, {r16['host']:.4f} host (bound "
+        f"{r16['bound']:.4f} ms by {r16['bound_by']}), plain backward {r16['plain']:.4f} ms, "
+        f"SDPA backward (unpacked, timing only) {r16['sdpa']:.4f} device, "
+        f"{r16['sdpa_host']:.4f} host{f32}")
+    if not (r16["rel"] <= K4_BF16_REL and r32["max"] <= K4_F32_MAX
+            and r16["form_rel"] <= K4_BF16_REL and r32["form_max"] <= K4_F32_MAX):
+        raise RuntimeError("K4 disagrees with its plain version")
+    entry = {
         "name": "packed_attention_bwd", "route": "cuda",
         "source": "ivid_tpu_torch/csrc/packed_attention_bwd.cu",
         "replaces": "ivid_tpu/ops/attention.py:312",
-        "max_abs_err": m16, "ms": ms16, "plain_ms": p16, "bound_ms": b16, "bound_by": by16,
-        "library_ms": s16, "shape": [b, t, 3 * c], "rel_l2": r16,
-        "f32_max_abs_err": m32, "f32_ms": ms32, "f32_plain_ms": p32, "f32_library_ms": s32,
-        "f32_bound_ms": b32,
+        "max_abs_err": r16["max"], "ms": r16["ms"], "host_ms": r16["host"],
+        "plain_ms": r16["plain"], "bound_ms": r16["bound"], "bound_by": r16["bound_by"],
+        "library_ms": r16["sdpa"], "library_host_ms": r16["sdpa_host"], "shape": [b, t, 3 * c],
+        "heads": heads, "rel_l2": r16["rel"], "formula_rel_l2": r16["form_rel"],
+        "f32_max_abs_err": r32["max"], "f32_formula_max_abs_err": r32["form_max"],
+        "f32_bound_ms": r32["bound"],
     }
+    if time_f32:
+        entry.update(f32_ms=r32["ms"], f32_host_ms=r32["host"], f32_plain_ms=r32["plain"],
+                     f32_library_ms=r32["sdpa"])
+    return entry
 
 
 def phase_unet():
@@ -827,6 +885,7 @@ def phase_train_profile(tr, timed=10, profiled=2):
     and the top kernels."""
     import torch
 
+    from ivid_tpu_torch import timing
     from ivid_tpu_torch.training.trainer import StepRecord
 
     tr.record = StepRecord(timing=True)
@@ -839,28 +898,32 @@ def phase_train_profile(tr, timed=10, profiled=2):
     stages = tr.record.stage_ms()
     mean = {k: sum(m[k] for m in stages) / timed for k in stages[0]}
     tr.record = None
-    before = read_counts()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(profiled):
-            tr.run_step()
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3 / profiled
-    launches = {k: v - before[k] for k, v in read_counts().items()}
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
-            continue  # host ops and annotated ranges; kernels are entries of their own
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        rows.append((dev_us / 1e3 / profiled, e.count // profiled, e.key))
-    rows.sort(reverse=True)
-    kernel_ms = sum(r[0] for r in rows)
-    n_kernels = sum(r[1] for r in rows)
     log(f"[train-profile] trainer step, batch 8, mean of {timed} steps (CUDA events, ms): "
         + ", ".join(f"{k} {v:.2f}" for k, v in mean.items()) + f"; host wall {wall_ms:.2f}")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    # torch.profiler has come back without any device activity on the H100
+    # machine; the steps are profiled once more before the breakdown is
+    # given up (the launch counts are checked either way).
+    for _ in range(2):
+        before = read_counts()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(profiled):
+                tr.run_step()
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3 / profiled
+        launches = {k: v - before[k] for k, v in read_counts().items()}
+        if not (launches["K1"] == 5 * profiled and launches["K4"] == 5 * profiled):
+            raise RuntimeError(f"the profiled training steps miss a kernel: {launches}")
+        rows = timing.device_rows(prof, profiled)
+        if rows:
+            break
+        log("[train-profile] torch.profiler recorded no device activity")
+    else:
+        log("[train-profile] device kernel time, idle share and top kernels: not measured")
+        return
+    kernel_ms = sum(r[0] for r in rows)
+    n_kernels = sum(r[1] for r in rows)
     # Idle share against the profiled wall (the profiler slows the host) and
     # against the unprofiled step by CUDA events.
     log(f"[train-profile] {profiled} profiled steps: {n_kernels} kernels and {kernel_ms:.2f} ms "
@@ -869,8 +932,6 @@ def phase_train_profile(tr, timed=10, profiled=2):
         f"unprofiled step; port kernel launches {launches}")
     for ms, n, name in rows[:12]:
         log(f"[train-profile]   {ms:9.3f} ms  x{n:<5d} {name[:110]}")
-    if not (rows and launches["K1"] == 5 * profiled and launches["K4"] == 5 * profiled):
-        raise RuntimeError("the profiled training steps show no device time or miss a kernel")
 
 
 def main():
@@ -882,11 +943,16 @@ def main():
     smi = phase_device()
     k1 = phase_attention(2, 0, training=False)
     k1_train = phase_attention(8, 3, training=True)
+    # The SR cascade's shapes (T=4096; 6 heads), checked and timed in bf16.
+    k1["other_shapes"] = [phase_attention(2, 5, False, t=4096, time_f32=False),
+                          phase_attention(2, 6, False, heads=6, time_f32=False)]
     k2 = phase_raster()
     k3, warp_inputs, r = phase_resolve()
     skirt8, skirt1 = phase_skirt(warp_inputs, r)
     del warp_inputs
     k4 = phase_attention_backward()
+    k4["other_shapes"] = [phase_attention_backward(2, 4096, 4, seed=7, time_f32=False),
+                          phase_attention_backward(2, 1024, 6, seed=8, time_f32=False)]
     phase_unet()
     phase_chain()
     phase_train_chain()
@@ -904,6 +970,10 @@ def main():
         entry["launches"] = path[key]
         entry["launches_by_path"] = {"sampling": sampling[key], "training": training[key]}
     skirt1["launches"] = 0
+    from ivid_tpu_torch import timing
+
+    log(f"[timing] device-time readings taken by queued CUDA events instead of "
+        f"torch.profiler: {timing.fallbacks}")
     log(json.dumps({"kernels": [k1, k1_train, k2, skirt8, skirt1, k3, k4]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -6,30 +6,43 @@
 // columns are head-major [h][q|k|v][64], written token-major into out [B, T, C]
 // at column h*64. No unpack or transpose copies exist on either side.
 //
-// What bounds it on the H100: at the slice's shape (T=1024, 4 heads, batch 2)
-// the work is 4*B*H*T^2*64 = 2.1 GFLOP per call over 6 MB of operands, far
-// above the bf16 ridge point, so the products bound it: the bf16 path runs
-// them on the tensor cores (wmma 16x16x16, f32 accumulation); the f32 path
-// keeps exact f32 FMAs on the CUDA cores. With one block per (sample, head,
-// 64-query tile) the slice's shape fills only 128 blocks, about one per SM, so
-// latency rather than peak throughput sets the pace.
+// What bounds it on the H100: operations. At the training shape (T=1024, 4
+// heads, batch 8) the work is 4*B*H*T^2*64 = 8.6 GFLOP per call over 16 MB of
+// operands, far above the bf16 ridge point (8.7 us of tensor-core time, 4.7
+// us of bytes). Next to the products sit the softmax's exponentials: T^2 per
+// (sample, head), 16 per 64-wide product step a thread, on the SM's
+// 16-per-clock special-function units, about as many clocks as the products.
 //
 // Design (both paths):
-// - One block per (sample, head, 64-query tile), 128 threads.
+// - One block per (sample, head, 64-query tile), 128 threads: batch 2 at
+//   T=1024 gives 128 blocks for the 132 SMs.
 // - The TPU kernel keeps the whole [BQ, T] f32 logits panel in VMEM (4 MB at
 //   T=1024); a block here has at most 227 KB of shared memory, so keys stream
 //   in 64-row K/V tiles with an online softmax: running max and sum in f32,
 //   the output accumulator rescaled per tile, one divide at the end (the TPU
 //   kernel's deferred division). Scores are multiplied by scale^2 * log2(e)
 //   in f32 so the softmax uses exp2 (the TPU kernel's exp2 fold).
-// - bf16: each warp owns 16 query rows. Its q fragments stay in registers;
-//   per tile it computes S = q k^T with wmma into shared memory, two lanes per
-//   row run the online softmax over S and write P in bf16, rescale the row's
-//   f32 accumulator tile, and wmma adds P v into it.
+// - bf16: the block is one warpgroup. S = Q K^T is a wgmma m64n64k16 with Q
+//   and K read from shared memory; S, the softmax of it, P and the 64 x 64
+//   f32 output accumulator never leave the registers: the row max and sum
+//   reduce over the quad of lanes that shares a row, P is packed to bf16
+//   pairs in the A-operand layout, and O += P V is a wgmma with A from
+//   registers and V (MN-major) from shared memory. Q and the K/V tiles arrive
+//   by TMA from a 3D tensor map over qkv (the packed columns in place, rows
+//   past T read as zeros) into two-stage rings, one for K and one for V,
+//   each slot refilled as soon as its own product is done, so loads run a
+//   tile ahead of the products. 42 KB of shared memory and ~110 registers
+//   let 4 blocks share an SM: the 512 blocks of batch 8 fit in one wave.
+// - The products and the softmax overlap inside the warpgroup: S of tile
+//   j+1 is issued before P_j V_j, and the softmax of tile j+1 runs on the
+//   CUDA cores and special-function units while the tensor cores finish
+//   both; only the rescale of O waits for P_j V_j. At batch 2 one block is
+//   alone on its SM, so this overlap, not other blocks, hides the latency.
 // - f32: two threads per query row, each holding 32 of the 64 dims of q and of
 //   the accumulator in registers; K/V tiles are stored with the two halves
 //   interleaved, so the pair reads neighbouring banks and the rest of the warp
-//   reads the same words (broadcast): no bank conflicts.
+//   reads the same words (broadcast): no bank conflicts. CUDA-core FMAs hold
+//   the f32 path to 1e-4 of the plain version.
 // - The TPU's even-head rule (128-lane stripes) does not apply.
 // - For training, the launch may also write each row's log-sum-exp of the
 //   logits (f32 [B, H, T], natural log) so the backward
@@ -38,11 +51,10 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
-#include <mma.h>
+
+#include "hopper.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int kD = 64;        // head width (the only one the configs use)
 constexpr int kBQ = 64;       // queries per block
@@ -52,146 +64,187 @@ constexpr int kHalf = kD / 2;
 constexpr float kLn2 = 0.69314718055994531f;
 
 // ---------------------------------------------------------------- bf16 path
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = kBQ / kWarps;  // 16 query rows per warp
-constexpr int kLdh = kD + 8;         // bf16 tile row stride (elements)
-constexpr int kLdf = kD + 4;         // f32 tile row stride (elements)
-constexpr int kTileH = kBQ * kLdh;   // one 64-row bf16 tile
-constexpr int kWarpH = kRows * kLdh; // one warp's 16-row bf16 tile
-constexpr int kWarpF = kRows * kLdf; // one warp's 16-row f32 tile
-constexpr size_t kSmemBf16 =
-    sizeof(__nv_bfloat16) * (3 * kTileH + kWarps * kWarpH) + sizeof(float) * 2 * kWarps * kWarpF;
+constexpr int kStages = 2;  // of the K ring and of the V ring
+constexpr int kTile = hopper::kTileBytes;
+// Alignment slack, the Q tile, kStages K and kStages V tiles, the barriers.
+constexpr size_t kSmemBf16 = 1024 + (1 + 2 * kStages) * kTile + 8 * (1 + 2 * kStages);
 
-// Copy 64 rows x 64 bf16 at column `col` of the packed rows starting at `row0`
-// into a [64][kLdh] tile, 16 bytes per thread and step; rows past `seq` are zero.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          long long c3, int row0, int seq, int col) {
-  for (int e = threadIdx.x; e < kBQ * (kD / 8); e += kThreads) {
-    const int r = e / (kD / 8);
-    const int c = (e % (kD / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < seq) {
-      v = *reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * c3 + col + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLdh + c) = v;
+// Online softmax of one tile of raw scores q.k in place: masks keys past
+// `seq`, moves the running max m (base-2 units) of rows g and g + 8, sets
+// alpha to the factor that rescales what was accumulated before, and leaves
+// p = exp2(s qscale - m) in sc and its partial row sums added to l.
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float qscale, int kbase,
+                                             int seq, int t4) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (kbase + kBK > seq && kbase + 8 * (i / 4) + 2 * t4 + (i & 1) >= seq) sc[i] = -INFINITY;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mnew = fmaxf(m[r], mx[r] * qscale);  // finite: every tile holds >= 1 key
+    alpha[r] = hopper::exp2_approx(m[r] - mnew);
+    m[r] = mnew;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    sc[i] = hopper::exp2_approx(fmaf(sc[i], qscale, -m[r]));
+    l[r] += sc[i];
+  }
+}
+
+// P as the A operand of the value product: bf16 pairs, one k16 step per row.
+__device__ __forceinline__ void pack_p(const float (&sc)[32], uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pa[kk][e] = hopper::pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-packed_attention_fwd_bf16(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-                          float* __restrict__ lse, int seq, int heads, float qscale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* k_s = q_s + kTileH;
-  __nv_bfloat16* v_s = k_s + kTileH;
-  __nv_bfloat16* p_s = v_s + kTileH;  // per warp [16][kLdh]
-  float* s_s = reinterpret_cast<float*>(p_s + kWarps * kWarpH);  // per warp [16][kLdf]
-  float* o_s = s_s + kWarps * kWarpF;                              // per warp [16][kLdf]
+packed_attention_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
+                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int seq,
+                          int heads, float qscale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* q_s = smem;
+  unsigned char* k_s = smem + kTile;                  // K ring
+  unsigned char* v_s = smem + (1 + kStages) * kTile;  // V ring
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (1 + 2 * kStages) * kTile);
+  uint64_t* q_bar = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + kStages;
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long c3 = 3LL * heads * kD;
-  const __nv_bfloat16* base = qkv + (long long)b * seq * c3 + (long long)h * 3 * kD;
-  __nv_bfloat16* p_w = p_s + warp * kWarpH;
-  float* s_w = s_s + warp * kWarpF;
-  float* o_w = o_s + warp * kWarpF;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t4 = tid % 4;
+  const int ntiles = (seq + kBK - 1) / kBK;
+  const int col_q = h * 3 * kD;
 
-  load_tile(q_s, base, c3, q0, seq, 0);
-  for (int e = lane; e < kWarpF; e += 32) o_w[e] = 0.f;
+  // K and V tiles travel in separate rings: K of tile j+1 is multiplied
+  // while V of tile j still is, and each slot is refilled as soon as its
+  // own product is done.
+  auto issue = [&](unsigned char* ring, uint64_t* full, int col, int j) {
+    const int s = j % kStages;
+    mbar_expect_tx(&full[s], kTile);
+    tma_load_3d(ring + s * kTile, &qkv_map, &full[s], col, j * kBK, b);
+  };
+  auto issue_k = [&](int j) { issue(k_s, k_full, col_q + kD, j); };
+  auto issue_v = [&](int j) { issue(v_s, v_full, col_q + 2 * kD, j); };
+  auto k_desc = [&](int j) { return desc_sw128(k_s + (j % kStages) * kTile); };
+  auto v_desc = [&](int j) { return desc_sw128(v_s + (j % kStages) * kTile); };
+  auto wait_k = [&](int j) { mbar_wait(&k_full[j % kStages], (j / kStages) & 1); };
+  auto wait_v = [&](int j) { mbar_wait(&v_full[j % kStages], (j / kStages) & 1); };
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < 2 * kStages; ++s) mbar_init(&k_full[s], 1);  // k_full, v_full
+    mbar_fence_init();
+    mbar_expect_tx(q_bar, kTile);
+    tma_load_3d(q_s, &qkv_map, q_bar, col_q, q0, b);
+    for (int j = 0; j < kStages && j < ntiles; ++j) {
+      issue_k(j);
+      issue_v(j);
+    }
+  }
   __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qf[kD / 16];
+
+  float o[32];
 #pragma unroll
-  for (int k = 0; k < kD / 16; ++k) {
-    wmma::load_matrix_sync(qf[k], q_s + warp * kWarpH + k * 16, kLdh);
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  // Running max (base-2 units) and this thread's share of the running sum,
+  // for rows g (index 0) and g + 8 (index 1) of the warp's 16.
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float alpha[2];
+  float sc[32];
+  uint32_t pa[kBK / 16][4];
+  const uint64_t dq = desc_sw128(q_s);
+  mbar_wait(q_bar, 0);
+
+  // Tile 0's scores and softmax; then, per tile j, S of tile j+1 is issued
+  // before P_j V_j, and the softmax of tile j+1 runs while the tensor cores
+  // finish P_j V_j.
+  wait_k(0);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) mma_ss(sc, dq + kk * kStepK, k_desc(0) + kk * kStepK, kk);
+  wg_commit();
+  wg_wait<0>();
+  fence_acc(sc);
+  softmax_tile(sc, m, l, alpha, qscale, 0, seq, t4);
+  pack_p(sc, pa);
+  __syncthreads();  // K of tile 0 is consumed
+  if (tid == 0 && kStages < ntiles) issue_k(kStages);
+
+  for (int j = 0; j + 1 < ntiles; ++j) {
+    wait_k(j + 1);
+    wg_fence();
+    const uint64_t dk = k_desc(j + 1);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) mma_ss(sc, dq + kk * kStepK, dk + kk * kStepK, kk);
+    wg_commit();
+    wait_v(j);
+    wg_fence();  // P_j and the rescaled O may be computed as late as here
+    const uint64_t dv = v_desc(j);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) mma_rs(o, pa[kk], dv + kk * kStepMN);
+    wg_commit();
+    wg_wait<1>();  // S of tile j+1 is in; P_j V_j may still run
+    fence_acc(sc);
+    softmax_tile(sc, m, l, alpha, qscale, (j + 1) * kBK, seq, t4);
+    wg_wait<0>();
+    fence_acc(o);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+    pack_p(sc, pa);
+    __syncthreads();  // K of tile j+1 and V of tile j are consumed: refill
+    if (tid == 0) {
+      if (j + 1 + kStages < ntiles) issue_k(j + 1 + kStages);
+      if (j + kStages < ntiles) issue_v(j + kStages);
+    }
   }
+  wait_v(ntiles - 1);
+  wg_fence();
+  const uint64_t dv = v_desc(ntiles - 1);
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) mma_rs(o, pa[kk], dv + kk * kStepMN);
+  wg_commit();
+  wg_wait<0>();
+  fence_acc(o);
 
-  // Softmax lanes: row r of the warp's 16, columns half*32 .. half*32+31.
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  float m = -INFINITY;
-  float l = 0.f;
-
-  for (int k0 = 0; k0 < seq; k0 += kBK) {
-    __syncthreads();  // the previous K/V tile is consumed
-    load_tile(k_s, base, c3, k0, seq, kD);
-    load_tile(v_s, base, c3, k0, seq, 2 * kD);
-    __syncthreads();
-
-    // S = q k^T for this warp's 16 rows and the tile's 64 keys.
+  // The quad of lanes sharing a row holds its sum in four parts.
 #pragma unroll
-    for (int n = 0; n < kBK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int k = 0; k < kD / 16; ++k) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, k_s + n * 16 * kLdh + k * 16, kLdh);
-        wmma::mma_sync(acc, qf[k], kf, acc);
-      }
-      wmma::store_matrix_sync(s_w + n * 16, acc, kLdf, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Online softmax over the tile; P in bf16; rescale the accumulator row.
-    float v[kHalf];
-    float mt = -INFINITY;
-    const float* srow = s_w + r * kLdf + half * kHalf;
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) {
-      v[j] = (k0 + half * kHalf + j < seq) ? srow[j] * qscale : -INFINITY;
-      mt = fmaxf(mt, v[j]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    const float mnew = fmaxf(m, mt);  // finite: every tile holds >= 1 key
-    const float alpha = exp2f(m - mnew);
-    float ls = 0.f;
-    __nv_bfloat16* prow = p_w + r * kLdh + half * kHalf;
-    float* orow = o_w + r * kLdf + half * kHalf;
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) {
-      const float p = exp2f(v[j] - mnew);
-      ls += p;
-      prow[j] = __float2bfloat16(p);
-      orow[j] *= alpha;
-    }
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    l = l * alpha + ls;
-    m = mnew;
-    __syncwarp();
-
-    // o += P v.
-#pragma unroll
-    for (int n = 0; n < kD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, o_w + n * 16, kLdf, wmma::mem_row_major);
-#pragma unroll
-      for (int k = 0; k < kBK / 16; ++k) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, p_w + k * 16, kLdh);
-        wmma::load_matrix_sync(vf, v_s + k * 16 * kLdh + n * 16, kLdh);
-        wmma::mma_sync(acc, pf, vf, acc);
-      }
-      wmma::store_matrix_sync(o_w + n * 16, acc, kLdf, wmma::mem_row_major);
-    }
-    __syncwarp();
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-
-  const int qi = q0 + warp * kRows + r;
-  if (qi < seq) {
-    const float inv = 1.f / l;
-    const float* orow = o_w + r * kLdf + half * kHalf;
-    __nv_bfloat16* dst = out + ((long long)b * seq + qi) * heads * kD + h * kD + half * kHalf;
+  const long long ld = (long long)heads * kD;
 #pragma unroll
-    for (int j = 0; j < kHalf; j += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + j) =
-          __floats2bfloat162_rn(orow[j] * inv, orow[j + 1] * inv);
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + g + 8 * r;
+    if (qi >= seq) continue;
+    const float inv = 1.f / l[r];
+    __nv_bfloat16* dst = out + ((long long)b * seq + qi) * ld + h * kD + 2 * t4;
+#pragma unroll
+    for (int jj = 0; jj < kD / 8; ++jj) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj) =
+          __floats2bfloat162_rn(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
     }
-    if (lse != nullptr && half == 0) {
-      lse[((long long)b * heads + h) * seq + qi] = (m + log2f(l)) * kLn2;
+    if (lse != nullptr && t4 == 0) {
+      lse[((long long)b * heads + h) * seq + qi] = (m[r] + log2f(l[r])) * kLn2;
     }
   }
 }
@@ -284,23 +337,25 @@ packed_attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out,
 }  // namespace
 
 // qkv [batch, seq, 3*heads*64] and out [batch, seq, heads*64], contiguous,
-// both float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1). lse is null or f32
-// [batch, heads, seq]: the natural log-sum-exp of each row's logits
-// scale^2 * q.k. qscale is scale^2 * log2(e). Returns cudaGetLastError()
-// after the launch.
+// both float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1; qkv 16-byte aligned).
+// lse is null or f32 [batch, heads, seq]: the natural log-sum-exp of each
+// row's logits scale^2 * q.k. qscale is scale^2 * log2(e). Returns a CUDA
+// error code: cudaErrorInvalidValue if the driver refuses qkv's tensor map,
+// else cudaGetLastError() after the launch.
 extern "C" int packed_attention_fwd_launch(const void* qkv, void* out, void* lse, int batch,
                                            int seq, int heads, float qscale,
                                            int is_bf16, void* stream) {
   const dim3 grid((seq + kBQ - 1) / kBQ, heads, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        packed_attention_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBf16));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    // Below the 48 KB a launch may take without the opt-in attribute.
+    static_assert(kSmemBf16 <= 48 * 1024, "K1 bf16 shared memory needs the opt-in attribute");
+    CUtensorMap map;
+    if (!hopper::make_tile_map(&map, qkv, 3ull * heads * kD, seq, batch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     packed_attention_fwd_bf16<<<grid, kThreads, kSmemBf16, s>>>(
-        static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-        static_cast<float*>(lse), seq, heads, qscale);
+        map, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), seq, heads, qscale);
   } else {
     packed_attention_fwd_f32<<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(qkv), static_cast<float*>(out), static_cast<float*>(lse), seq,

@@ -14,349 +14,376 @@
 //   dV = P^T dO,  dS = P o (dO V^T - D),  dQ = s^2 dS K,  dK = s^2 dS^T Q.
 // P is rebuilt per 64x64 tile as exp2(q.k * scale^2 log2(e) - lse log2(e)).
 //
-// What bounds it on the H100: operations. Per (sample, head) the backward
-// does five T x T x 64 products (S twice, dP twice, dV, dK, dQ less the two
-// it shares): 10 B H T^2 D flops counted the usual way, 21.5 GFLOP at the
-// training shape [8, 1024, 768] with 4 heads, against 989 TFLOP/s bf16
-// (21.7 us). Its operands are 50 MB.
+// What bounds it on the H100: operations. The function needs five T x T x
+// 64 products per (sample, head) (S, dP, dV, dK, dQ): 10 B H T^2 D flops,
+// 21.5 GFLOP at the training shape [8, 1024, 768] with 4 heads, against 989
+// TFLOP/s bf16 (21.7 us). This design does seven (the dQ blocks redo S and
+// dP): 30.1 GFLOP, 30.4 us. Its operands are 50 MB. It also takes two
+// exponentials per (key, query) pair, one in each kind of block below, on
+// the SM's special-function units (16 a clock): ~16 us at that shape and
+// the 1.98 GHz boost clock, near the products' own bound.
 //
-// Design (a first version: right, simple, no atomics):
-// - delta kernel: D per row, one warp per (token, head).
-// - dK/dV kernel: one block per (sample, head, 64-key tile), 4 warps of 16
-//   keys. The block walks all query tiles; per tile each warp computes
-//   S^T = K Q^T and dP^T = V dO^T for its keys, forms P^T and dS^T in shared
-//   memory, and accumulates dV += P^T dO and dK += dS^T Q in wmma
-//   accumulator fragments that stay in registers for the whole walk.
-// - dQ kernel: one block per (sample, head, 64-query tile), the mirror image:
-//   S = Q K^T and dP = dO V^T per key tile, dQ += dS K in registers.
-// - bf16 runs the products on the tensor cores (wmma 16x16x16, f32
-//   accumulation), with P and dS rounded to bf16 as their operands; f32 runs
-//   exact FMAs on the CUDA cores, two threads per row holding half of the 64
-//   dims each (the layout of the forward's f32 path), with the staged tiles
-//   interleaved so the pair reads neighbouring banks.
-// - The dQ kernel recomputes S and dP that the dK/dV kernel also computed:
-//   two of the seven products are done twice, which avoids atomics on dQ.
+// Design (no atomics, so dqkv is deterministic):
+// - stats kernel: per row, lse in base-2 units and D = rowsum(dO o O), a
+//   few lanes per (token, head) reading 16 bytes each, into f32 pairs
+//   [B, H, Tp, 2] with T padded to a multiple of 64 (pad rows get lse =
+//   +inf, so their P is exactly 0). One launch; its time counts in K4's.
+// - dK/dV blocks: one block (one warpgroup) per (sample, head, 64-key
+//   tile), walking all query tiles. Per tile, S^T = K Q^T and dP^T = V dO^T
+//   are wgmma m64n64k16 from shared memory; P^T = exp2(S^T qscale - lse2)
+//   and dS^T = P^T o (dP^T - D) are formed in registers and packed to bf16
+//   as A operands; dV += P^T dO and dK += dS^T Q are wgmma with A from
+//   registers and B (MN-major) from shared memory. The dK and dV
+//   accumulators stay in registers for the whole walk.
+// - dQ blocks: one per (sample, head, 64-query tile), the mirror image:
+//   S = Q K^T and dP = dO V^T per key tile, dS in registers, dQ += dS K.
+//   They redo S and dP, two of the seven products, which avoids atomics on
+//   dQ.
+// - A block is one warpgroup and its steps depend on each other, so the
+//   design overlaps what it can inside the block and fills the SMs with
+//   blocks: the products go out in groups (S, then dP, then the first
+//   update), and each elementwise step runs on the CUDA cores and
+//   special-function units while the tensor cores finish the next group.
+//   Both kinds of block share one launch, the dK/dV blocks first, so the
+//   shorter dQ blocks fill the SMs that the last dK/dV blocks leave idle.
+//   At ~170 registers two blocks share an SM; capped at 168 for three,
+//   ptxas serializes the products for want of registers and the launch is
+//   no faster.
+// - Tiles arrive by TMA (3D tensor maps over qkv and dout in their packed
+//   layouts; the 64 stats pairs of a query tile by a bulk copy on the same
+//   barrier) into a two-stage ring: tile j+1 is in flight while tile j is
+//   multiplied. S, P, dP and dS never touch shared memory.
+// - f32 runs exact FMAs on the CUDA cores, two threads per row holding half
+//   of the 64 dims each (the layout of the forward's f32 path), with the
+//   staged tiles interleaved so the pair reads neighbouring banks.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
-#include <mma.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kD = 64;        // head width
 constexpr int kTile = 64;     // queries or keys per tile
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = kTile / kWarps;  // 16 rows per warp
 constexpr int kHalf = kD / 2;
-constexpr int kLdh = kD + 8;           // bf16 tile row stride (elements)
-constexpr int kLdf = kD + 4;           // f32 tile row stride (elements)
-constexpr int kTileH = kTile * kLdh;
-constexpr int kWarpH = kRows * kLdh;
-constexpr int kWarpF = kRows * kLdf;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of the bf16 kernels: four 64-row bf16 tiles, the tile's lse
-// and D, and per warp two f32 and two bf16 16-row panels.
-constexpr size_t kSmemBf16 = sizeof(bf16) * (4 * kTileH + kWarps * 2 * kWarpH) +
-                             sizeof(float) * (2 * kTile + kWarps * 2 * kWarpF);
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int kStages = 2;
+constexpr int kTileB = hopper::kTileBytes;
+constexpr int kStatBytes = kTile * 8;  // a tile's (lse2, D) pairs
+// dK/dV: slack, K, V, kStages (Q, dO) pairs, kStages stats tiles, barriers.
+constexpr size_t kSmemDkdv = 1024 + (2 + 2 * kStages) * kTileB + kStages * kStatBytes +
+                             8 * (1 + kStages);
+// dQ: slack, Q, dO, kStages (K, V) pairs, barriers.
+constexpr size_t kSmemDq = 1024 + (2 + 2 * kStages) * kTileB + 8 * (1 + kStages);
+constexpr size_t kSmemBf16 = kSmemDkdv > kSmemDq ? kSmemDkdv : kSmemDq;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
-// D[b, h, t] = sum_d dout[b, t, h*64+d] * out[b, t, h*64+d]; one warp per row.
+// stats[b, h, t] = (lse[b, h, t] log2(e), sum_d dout[b, t, h*64+d] out[b, t, h*64+d])
+// for t < seq, (+inf, 0) for seq <= t < tpad. kLanes lanes share a (token,
+// head) row, each reading 16 bytes of out and of dout.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_delta(const T* __restrict__ out, const T* __restrict__ dout, float* __restrict__ delta,
-               int batch, int seq, int heads) {
-  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;  // (b*seq+t)*heads+h
-  const int lane = threadIdx.x % 32;
-  if (row >= (long long)batch * seq * heads) return;
-  const T* o = out + row * kD;
-  const T* g = dout + row * kD;
-  float acc = to_f(o[lane]) * to_f(g[lane]) + to_f(o[lane + 32]) * to_f(g[lane + 32]);
+attn_bwd_stats(const T* __restrict__ out, const T* __restrict__ dout, const float* __restrict__ lse,
+               float2* __restrict__ stats, long long rows, int seq, int tpad, int heads) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kLanes = kD / kVec;
+  const long long row = ((long long)blockIdx.x * kThreads + threadIdx.x) / kLanes;  // (b*tpad+t)*heads+h
+  const int part = threadIdx.x % kLanes;
+  const bool valid = row < rows;  // the shuffles below need every lane
+  const int h = row % heads;
+  const long long bt = row / heads;
+  const int t = bt % tpad;
+  const int b = bt / tpad;
+  const long long bh = (long long)b * heads + h;
+  float acc = 0.f;
+  if (valid && t < seq) {
+    const long long src = (((long long)b * seq + t) * heads + h) * kD + part * kVec;
+    const uint4 ov = *reinterpret_cast<const uint4*>(out + src);
+    const uint4 gv = *reinterpret_cast<const uint4*>(dout + src);
+    const T* o = reinterpret_cast<const T*>(&ov);
+    const T* g = reinterpret_cast<const T*>(&gv);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const int h = row % heads;
-    const long long bt = row / heads;
-    const int t = bt % seq;
-    const int b = bt / seq;
-    delta[((long long)b * heads + h) * seq + t] = acc;
+    for (int i = 0; i < kVec; ++i) acc += to_f(o[i]) * to_f(g[i]);
   }
-}
-
-// Copy 64 rows x 64 bf16 from rows row0.. of a row-major source with row
-// stride `ld` (elements) into a [64][kLdh] tile; rows past `seq` are zero.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long ld, int row0,
-                                          int seq) {
-  for (int e = threadIdx.x; e < kTile * (kD / 8); e += kThreads) {
-    const int r = e / (kD / 8);
-    const int c = (e % (kD / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < seq) v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdh + c) = v;
-  }
-}
-
-// Per-row lse (in base-2 units) and D of a 64-row tile; rows past `seq` get
-// lse = +inf, so their P is exactly 0.
-__device__ __forceinline__ void load_rowstats(float* lse_s, float* dl_s, const float* lse,
-                                              const float* delta, int row0, int seq) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const bool ok = row0 + i < seq;
-    lse_s[i] = ok ? lse[row0 + i] * kLog2e : INFINITY;
-    dl_s[i] = ok ? delta[row0 + i] : 0.f;
-  }
-}
-
-// Write a warp's 16 x 64 f32 panel (row stride kLdf) as bf16 rows of dqkv.
-__device__ __forceinline__ void store_rows_bf16(const float* panel, bf16* dst_base, long long ld,
-                                                int row0, int seq, float mul) {
-  const int lane = threadIdx.x % 32;
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  if (row0 + r >= seq) return;
-  const float* src = panel + r * kLdf + half * kHalf;
-  bf16* dst = dst_base + (long long)(row0 + r) * ld + half * kHalf;
 #pragma unroll
-  for (int j = 0; j < kHalf; j += 2) {
-    *reinterpret_cast<__nv_bfloat162*>(dst + j) = __floats2bfloat162_rn(src[j] * mul, src[j + 1] * mul);
+  for (int off = kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (valid && part == 0) {
+    stats[bh * tpad + t] = t < seq ? make_float2(lse[bh * seq + t] * kLog2e, acc)
+                                   : make_float2(INFINITY, 0.f);
   }
 }
 
 // ----------------------------------------------------------------- bf16 dK/dV
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dqkv, int seq, int heads, float qscale, float gscale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kTileH;
-  bf16* q_s = v_s + kTileH;
-  bf16* do_s = q_s + kTileH;
-  bf16* pt_s = do_s + kTileH;            // per warp [16][kLdh]: P^T
-  bf16* dst_s = pt_s + kWarps * kWarpH;  // per warp [16][kLdh]: dS^T
-  float* st_s = reinterpret_cast<float*>(dst_s + kWarps * kWarpH);  // per warp S^T
-  float* dpt_s = st_s + kWarps * kWarpF;                             // per warp dP^T
-  float* lse_s = dpt_s + kWarps * kWarpF;
-  float* dl_s = lse_s + kTile;
+// One 64-key tile [k0, k0 + 64) of (b, h), walking every query tile.
+__device__ __forceinline__ void dkdv_bf16(const CUtensorMap* qkv_map, const CUtensorMap* do_map,
+                                          const float2* __restrict__ stats,
+                                          bf16* __restrict__ dqkv, unsigned char* smem, int b,
+                                          int h, int k0, int seq, int tpad, int heads,
+                                          float qscale, float gscale) {
+  using namespace hopper;
+  unsigned char* k_s = smem;
+  unsigned char* v_s = smem + kTileB;
+  unsigned char* qd_s = smem + 2 * kTileB;  // stage s: Q at 2s, dO at 2s+1 tiles
+  unsigned char* st_s = smem + (2 + 2 * kStages) * kTileB;  // stage s at s * kStatBytes
+  uint64_t* bars = reinterpret_cast<uint64_t*>(st_s + kStages * kStatBytes);
+  uint64_t* kv_bar = bars;
+  uint64_t* full = bars + 1;
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long c3 = 3LL * heads * kD;
-  const long long c1 = (long long)heads * kD;
-  const bf16* base = qkv + (long long)b * seq * c3 + (long long)h * 3 * kD;
-  const bf16* gbase = dout + (long long)b * seq * c1 + (long long)h * kD;
-  const float* lse_bh = lse + ((long long)b * heads + h) * seq;
-  const float* dl_bh = delta + ((long long)b * heads + h) * seq;
-  bf16* pt_w = pt_s + warp * kWarpH;
-  bf16* dst_w = dst_s + warp * kWarpH;
-  float* st_w = st_s + warp * kWarpF;
-  float* dpt_w = dpt_s + warp * kWarpF;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t4 = tid % 4;
+  const int ntiles = tpad / kTile;
+  const int col_q = h * 3 * kD;
+  const float2* stats_bh = stats + ((long long)b * heads + h) * tpad;
 
-  load_tile(k_s, base + kD, c3, k0, seq);
-  load_tile(v_s, base + 2 * kD, c3, k0, seq);
-
-  FragC dk[kD / 16], dv[kD / 16];
-#pragma unroll
-  for (int n = 0; n < kD / 16; ++n) {
-    wmma::fill_fragment(dk[n], 0.f);
-    wmma::fill_fragment(dv[n], 0.f);
+  auto issue_q = [&](int j) {
+    const int s = j % kStages;
+    mbar_expect_tx(&full[s], 2 * kTileB + kStatBytes);
+    tma_load_3d(qd_s + 2 * s * kTileB, qkv_map, &full[s], col_q, j * kTile, b);
+    tma_load_3d(qd_s + (2 * s + 1) * kTileB, do_map, &full[s], h * kD, j * kTile, b);
+    bulk_load(st_s + s * kStatBytes, stats_bh + j * kTile, kStatBytes, &full[s]);
+  };
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+    mbar_expect_tx(kv_bar, 2 * kTileB);
+    tma_load_3d(k_s, qkv_map, kv_bar, col_q + kD, k0, b);
+    tma_load_3d(v_s, qkv_map, kv_bar, col_q + 2 * kD, k0, b);
+    issue_q(0);
   }
-  const int r = lane >> 1;  // elementwise lanes: key row r, query columns half*32..
-  const int half = lane & 1;
+  __syncthreads();
 
-  for (int q0 = 0; q0 < seq; q0 += kTile) {
-    __syncthreads();  // the previous query tile is consumed
-    load_tile(q_s, base, c3, q0, seq);
-    load_tile(do_s, gbase, c1, q0, seq);
-    load_rowstats(lse_s, dl_s, lse_bh, dl_bh, q0, seq);
-    __syncthreads();
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  const uint64_t dk_a = desc_sw128(k_s);
+  const uint64_t dv_a = desc_sw128(v_s);
+  mbar_wait(kv_bar, 0);
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 64 queries.
-#pragma unroll
-    for (int n = 0; n < kTile / 16; ++n) {
-      FragC s_acc, dp_acc;
-      wmma::fill_fragment(s_acc, 0.f);
-      wmma::fill_fragment(dp_acc, 0.f);
-#pragma unroll
-      for (int k = 0; k < kD / 16; ++k) {
-        FragA a;
-        FragBc bq;
-        wmma::load_matrix_sync(a, k_s + warp * kWarpH + k * 16, kLdh);
-        wmma::load_matrix_sync(bq, q_s + n * 16 * kLdh + k * 16, kLdh);
-        wmma::mma_sync(s_acc, a, bq, s_acc);
-        wmma::load_matrix_sync(a, v_s + warp * kWarpH + k * 16, kLdh);
-        wmma::load_matrix_sync(bq, do_s + n * 16 * kLdh + k * 16, kLdh);
-        wmma::mma_sync(dp_acc, a, bq, dp_acc);
-      }
-      wmma::store_matrix_sync(st_w + n * 16, s_acc, kLdf, wmma::mem_row_major);
-      wmma::store_matrix_sync(dpt_w + n * 16, dp_acc, kLdf, wmma::mem_row_major);
-    }
-    __syncwarp();
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % kStages;
+    if (tid == 0 && j + 1 < ntiles) issue_q(j + 1);  // its stage was freed at j - 1
+    mbar_wait(&full[s], (j / kStages) & 1);
+    const uint64_t dq_b = desc_sw128(qd_s + 2 * s * kTileB);
+    const uint64_t do_b = desc_sw128(qd_s + (2 * s + 1) * kTileB);
 
-    // P^T = exp2(S^T qscale - lse2[q]); dS^T = P^T o (dP^T - D[q]).
-#pragma unroll 8
-    for (int j = 0; j < kHalf; ++j) {
-      const int col = half * kHalf + j;
-      const float p = exp2f(st_w[r * kLdf + col] * qscale - lse_s[col]);
-      const float ds = p * (dpt_w[r * kLdf + col] - dl_s[col]);
-      pt_w[r * kLdh + col] = __float2bfloat16(p);
-      dst_w[r * kLdh + col] = __float2bfloat16(ds);
-    }
-    __syncwarp();
+    // S^T = K Q^T and dP^T = V dO^T (rows: this block's keys; columns: the
+    // tile's queries) as two groups, so P^T's exponentials run while the
+    // tensor cores still form dP^T.
+    float st[32], dpt[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) mma_ss(st, dk_a + kk * kStepK, dq_b + kk * kStepK, kk);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) mma_ss(dpt, dv_a + kk * kStepK, do_b + kk * kStepK, kk);
+    wg_commit();
+    wg_wait<1>();
+    fence_acc(st);
 
-    // dV += P^T dO, dK += dS^T Q.
+    // P^T = exp2(S^T qscale - lse2[q]) in place, packed as the A operand of
+    // dV += P^T dO (dO as MN-major B), which runs while dS^T is formed.
+    const float4* rs = reinterpret_cast<const float4*>(st_s + s * kStatBytes);
+    uint32_t pa[kTile / 16][4];
 #pragma unroll
-    for (int n = 0; n < kD / 16; ++n) {
+    for (int kk = 0; kk < kTile / 16; ++kk) {
 #pragma unroll
-      for (int k = 0; k < kTile / 16; ++k) {
-        FragA a;
-        FragBr bm;
-        wmma::load_matrix_sync(a, pt_w + k * 16, kLdh);
-        wmma::load_matrix_sync(bm, do_s + k * 16 * kLdh + n * 16, kLdh);
-        wmma::mma_sync(dv[n], a, bm, dv[n]);
-        wmma::load_matrix_sync(a, dst_w + k * 16, kLdh);
-        wmma::load_matrix_sync(bm, q_s + k * 16 * kLdh + n * 16, kLdh);
-        wmma::mma_sync(dk[n], a, bm, dk[n]);
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * kk + 2 * e;
+        const float4 r4 = rs[4 * (2 * kk + e / 2) + t4];  // (lse2, D) of queries c, c + 1
+        st[i] = exp2_approx(st[i] * qscale - r4.x);
+        st[i + 1] = exp2_approx(st[i + 1] * qscale - r4.z);
+        pa[kk][e] = pack_bf16(st[i], st[i + 1]);
       }
     }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) mma_rs(dv, pa[kk], do_b + kk * kStepMN);
+    wg_commit();
+    wg_wait<1>();
+    fence_acc(dpt);
+
+    // dS^T = P^T o (dP^T - D[q]), the A operand of dK += dS^T Q.
+    uint32_t dsa[kTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * kk + 2 * e;
+        const float4 r4 = rs[4 * (2 * kk + e / 2) + t4];
+        dsa[kk][e] = pack_bf16(st[i] * (dpt[i] - r4.y), st[i + 1] * (dpt[i + 1] - r4.w));
+      }
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) mma_rs(dk, dsa[kk], dq_b + kk * kStepMN);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(dv);
+    fence_acc(dk);
+    __syncthreads();  // stage s is consumed: the next issue may refill it
   }
 
-  __syncwarp();
+  const long long ld = 3LL * heads * kD;
 #pragma unroll
-  for (int n = 0; n < kD / 16; ++n) {
-    wmma::store_matrix_sync(st_w + n * 16, dk[n], kLdf, wmma::mem_row_major);
-    wmma::store_matrix_sync(dpt_w + n * 16, dv[n], kLdf, wmma::mem_row_major);
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + warp * 16 + g + 8 * r;
+    if (key >= seq) continue;
+    bf16* dst = dqkv + ((long long)b * seq + key) * ld + col_q + 2 * t4;
+#pragma unroll
+    for (int jj = 0; jj < kD / 8; ++jj) {
+      const int i = 4 * jj + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(dst + kD + 8 * jj) =
+          __floats2bfloat162_rn(dk[i] * gscale, dk[i + 1] * gscale);
+      *reinterpret_cast<__nv_bfloat162*>(dst + 2 * kD + 8 * jj) =
+          __floats2bfloat162_rn(dv[i], dv[i + 1]);
+    }
   }
-  __syncwarp();
-  bf16* obase = dqkv + (long long)b * seq * c3 + (long long)h * 3 * kD;
-  store_rows_bf16(st_w, obase + kD, c3, k0 + warp * kRows, seq, gscale);
-  store_rows_bf16(dpt_w, obase + 2 * kD, c3, k0 + warp * kRows, seq, 1.f);
 }
 
 // ------------------------------------------------------------------- bf16 dQ
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dqkv, int seq, int heads, float qscale, float gscale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + kTileH;
-  bf16* k_s = do_s + kTileH;
-  bf16* v_s = k_s + kTileH;
-  bf16* ds_s = v_s + kTileH;                                        // per warp [16][kLdh]: dS
-  float* s_s = reinterpret_cast<float*>(ds_s + kWarps * 2 * kWarpH);  // per warp S
-  float* dp_s = s_s + kWarps * kWarpF;                                // per warp dP
-  float* lse_s = dp_s + kWarps * kWarpF;
-  float* dl_s = lse_s + kTile;
+// One 64-query tile [q0, q0 + 64) of (b, h), walking every key tile.
+__device__ __forceinline__ void dq_bf16(const CUtensorMap* qkv_map, const CUtensorMap* do_map,
+                                        const float2* __restrict__ stats,
+                                        bf16* __restrict__ dqkv, unsigned char* smem, int b,
+                                        int h, int q0, int seq, int tpad, int heads, float qscale,
+                                        float gscale) {
+  using namespace hopper;
+  unsigned char* q_s = smem;
+  unsigned char* do_s = smem + kTileB;
+  unsigned char* kv_s = smem + 2 * kTileB;  // stage s: K at 2s, V at 2s+1 tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (2 + 2 * kStages) * kTileB);
+  uint64_t* qd_bar = bars;
+  uint64_t* full = bars + 1;
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long c3 = 3LL * heads * kD;
-  const long long c1 = (long long)heads * kD;
-  const bf16* base = qkv + (long long)b * seq * c3 + (long long)h * 3 * kD;
-  const bf16* gbase = dout + (long long)b * seq * c1 + (long long)h * kD;
-  bf16* ds_w = ds_s + warp * kWarpH;
-  float* s_w = s_s + warp * kWarpF;
-  float* dp_w = dp_s + warp * kWarpF;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t4 = tid % 4;
+  const int ntiles = tpad / kTile;
+  const int col_q = h * 3 * kD;
 
-  load_tile(q_s, base, c3, q0, seq);
-  load_tile(do_s, gbase, c1, q0, seq);
-  load_rowstats(lse_s, dl_s, lse + ((long long)b * heads + h) * seq,
-                delta + ((long long)b * heads + h) * seq, q0, seq);
+  auto issue_kv = [&](int j) {
+    const int s = j % kStages;
+    mbar_expect_tx(&full[s], 2 * kTileB);
+    tma_load_3d(kv_s + 2 * s * kTileB, qkv_map, &full[s], col_q + kD, j * kTile, b);
+    tma_load_3d(kv_s + (2 * s + 1) * kTileB, qkv_map, &full[s], col_q + 2 * kD, j * kTile, b);
+  };
+  if (tid == 0) {
+    mbar_init(qd_bar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+    mbar_expect_tx(qd_bar, 2 * kTileB);
+    tma_load_3d(q_s, qkv_map, qd_bar, col_q, q0, b);
+    tma_load_3d(do_s, do_map, qd_bar, h * kD, q0, b);
+    issue_kv(0);
+  }
   __syncthreads();
-  FragA qf[kD / 16], gf[kD / 16];
-#pragma unroll
-  for (int k = 0; k < kD / 16; ++k) {
-    wmma::load_matrix_sync(qf[k], q_s + warp * kWarpH + k * 16, kLdh);
-    wmma::load_matrix_sync(gf[k], do_s + warp * kWarpH + k * 16, kLdh);
-  }
-  FragC dq[kD / 16];
-#pragma unroll
-  for (int n = 0; n < kD / 16; ++n) wmma::fill_fragment(dq[n], 0.f);
 
-  const int r = lane >> 1;  // elementwise lanes: query row r, key columns half*32..
-  const int half = lane & 1;
-  const float lse2 = lse_s[warp * kRows + r];
-  const float drow = dl_s[warp * kRows + r];
-
-  for (int k0 = 0; k0 < seq; k0 += kTile) {
-    __syncthreads();  // the previous key tile is consumed
-    load_tile(k_s, base + kD, c3, k0, seq);
-    load_tile(v_s, base + 2 * kD, c3, k0, seq);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 queries x 64 keys.
+  // lse2 and D of rows g and g + 8 of the warp's 16 (pad rows: +inf, 0).
+  const float2* stats_bh = stats + ((long long)b * heads + h) * tpad;
+  const float2 rs[2] = {stats_bh[q0 + warp * 16 + g], stats_bh[q0 + warp * 16 + g + 8]};
+  float dq[32];
 #pragma unroll
-    for (int n = 0; n < kTile / 16; ++n) {
-      FragC s_acc, dp_acc;
-      wmma::fill_fragment(s_acc, 0.f);
-      wmma::fill_fragment(dp_acc, 0.f);
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  const uint64_t dq_a = desc_sw128(q_s);
+  const uint64_t do_a = desc_sw128(do_s);
+  mbar_wait(qd_bar, 0);
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % kStages;
+    if (tid == 0 && j + 1 < ntiles) issue_kv(j + 1);  // its stage was freed at j - 1
+    mbar_wait(&full[s], (j / kStages) & 1);
+    const uint64_t dk_b = desc_sw128(kv_s + 2 * s * kTileB);
+    const uint64_t dv_b = desc_sw128(kv_s + (2 * s + 1) * kTileB);
+
+    // S = Q K^T and dP = dO V^T for this block's queries and the tile's
+    // keys, as two groups: P's exponentials run while dP is formed.
+    float sa[32], dp[32];
+    wg_fence();
 #pragma unroll
-      for (int k = 0; k < kD / 16; ++k) {
-        FragBc bk;
-        wmma::load_matrix_sync(bk, k_s + n * 16 * kLdh + k * 16, kLdh);
-        wmma::mma_sync(s_acc, qf[k], bk, s_acc);
-        wmma::load_matrix_sync(bk, v_s + n * 16 * kLdh + k * 16, kLdh);
-        wmma::mma_sync(dp_acc, gf[k], bk, dp_acc);
-      }
-      wmma::store_matrix_sync(s_w + n * 16, s_acc, kLdf, wmma::mem_row_major);
-      wmma::store_matrix_sync(dp_w + n * 16, dp_acc, kLdf, wmma::mem_row_major);
+    for (int kk = 0; kk < kD / 16; ++kk) mma_ss(sa, dq_a + kk * kStepK, dk_b + kk * kStepK, kk);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) mma_ss(dp, do_a + kk * kStepK, dv_b + kk * kStepK, kk);
+    wg_commit();
+    wg_wait<1>();
+    fence_acc(sa);
+
+    // P in place, keys past `seq` (zeros from TMA) masked out.
+    const int kbase = j * kTile;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool valid = kbase + 8 * (i / 4) + 2 * t4 + (i & 1) < seq;
+      sa[i] = valid ? exp2_approx(sa[i] * qscale - rs[(i >> 1) & 1].x) : 0.f;
     }
-    __syncwarp();
+    wg_wait<0>();
+    fence_acc(dp);
 
-    // dS = P o (dP - D), with keys past `seq` masked out.
-#pragma unroll 8
-    for (int j = 0; j < kHalf; ++j) {
-      const int col = half * kHalf + j;
-      float ds = 0.f;
-      if (k0 + col < seq) {
-        const float p = exp2f(s_w[r * kLdf + col] * qscale - lse2);
-        ds = p * (dp_w[r * kLdf + col] - drow);
-      }
-      ds_w[r * kLdh + col] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-
-    // dQ += dS K.
+    // dS = P o (dP - D), the A operand of dQ += dS K (K as MN-major B).
+    uint32_t dsa[kTile / 16][4];
 #pragma unroll
-    for (int n = 0; n < kD / 16; ++n) {
+    for (int kk = 0; kk < kTile / 16; ++kk) {
 #pragma unroll
-      for (int k = 0; k < kTile / 16; ++k) {
-        FragA a;
-        FragBr bm;
-        wmma::load_matrix_sync(a, ds_w + k * 16, kLdh);
-        wmma::load_matrix_sync(bm, k_s + k * 16 * kLdh + n * 16, kLdh);
-        wmma::mma_sync(dq[n], a, bm, dq[n]);
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * kk + 2 * e;
+        const float d = rs[e & 1].y;
+        dsa[kk][e] = pack_bf16(sa[i] * (dp[i] - d), sa[i + 1] * (dp[i + 1] - d));
       }
     }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) mma_rs(dq, dsa[kk], dk_b + kk * kStepMN);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(dq);
+    __syncthreads();  // stage s is consumed: the next issue may refill it
   }
 
-  __syncwarp();
+  const long long ld = 3LL * heads * kD;
 #pragma unroll
-  for (int n = 0; n < kD / 16; ++n) {
-    wmma::store_matrix_sync(s_w + n * 16, dq[n], kLdf, wmma::mem_row_major);
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + g + 8 * r;
+    if (qi >= seq) continue;
+    bf16* dst = dqkv + ((long long)b * seq + qi) * ld + col_q + 2 * t4;
+#pragma unroll
+    for (int jj = 0; jj < kD / 8; ++jj) {
+      const int i = 4 * jj + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj) =
+          __floats2bfloat162_rn(dq[i] * gscale, dq[i + 1] * gscale);
+    }
   }
-  __syncwarp();
-  store_rows_bf16(s_w, dqkv + (long long)b * seq * c3 + (long long)h * 3 * kD, c3,
-                  q0 + warp * kRows, seq, gscale);
+}
+
+// Both bf16 passes in one launch: blockIdx.z < batch are the dK/dV blocks,
+// the rest the dQ blocks. The longer dK/dV blocks come first in the grid,
+// so the dQ blocks fill the SMs that the last of them leave idle.
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
+              const __grid_constant__ CUtensorMap do_map, const float2* __restrict__ stats,
+              bf16* __restrict__ dqkv, int batch, int seq, int tpad, int heads, float qscale,
+              float gscale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align_1024(smem_raw);
+  const int z = blockIdx.z;
+  const int row0 = blockIdx.x * kTile;
+  if (z < batch) {
+    dkdv_bf16(&qkv_map, &do_map, stats, dqkv, smem, z, blockIdx.y, row0, seq, tpad, heads,
+              qscale, gscale);
+  } else {
+    dq_bf16(&qkv_map, &do_map, stats, dqkv, smem, z - batch, blockIdx.y, row0, seq, tpad, heads,
+            qscale, gscale);
+  }
 }
 
 // ------------------------------------------------------------------ f32 paths
@@ -374,8 +401,8 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long
 
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dqkv, int seq, int heads, float qscale, float gscale) {
+                  const float2* __restrict__ stats, float* __restrict__ dqkv, int seq, int tpad,
+                  int heads, float qscale, float gscale) {
   __shared__ float q_s[kTile * kD];
   __shared__ float do_s[kTile * kD];
   __shared__ float lse_s[kTile];
@@ -392,8 +419,7 @@ attn_bwd_dkdv_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
   const long long c1 = (long long)heads * kD;
   const float* base = qkv + (long long)b * seq * c3 + (long long)h * 3 * kD;
   const float* gbase = dout + (long long)b * seq * c1 + (long long)h * kD;
-  const float* lse_bh = lse + ((long long)b * heads + h) * seq;
-  const float* dl_bh = delta + ((long long)b * heads + h) * seq;
+  const float2* stats_bh = stats + ((long long)b * heads + h) * tpad;
 
   float kr[kHalf], vr[kHalf], dk[kHalf], dv[kHalf];
 #pragma unroll
@@ -408,7 +434,11 @@ attn_bwd_dkdv_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
     __syncthreads();
     load_tile_f32(q_s, base, c3, q0, seq);
     load_tile_f32(do_s, gbase, c1, q0, seq);
-    load_rowstats(lse_s, dl_s, lse_bh, dl_bh, q0, seq);
+    for (int i = tid; i < kTile; i += kThreads) {
+      const float2 st = stats_bh[q0 + i];  // pad rows: +inf, 0
+      lse_s[i] = st.x;
+      dl_s[i] = st.y;
+    }
     __syncthreads();
     for (int i = 0; i < kTile; ++i) {
       const float* qi = q_s + i * kD + half;
@@ -442,8 +472,8 @@ attn_bwd_dkdv_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
 
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                float* __restrict__ dqkv, int seq, int heads, float qscale, float gscale) {
+                const float2* __restrict__ stats, float* __restrict__ dqkv, int seq, int tpad,
+                int heads, float qscale, float gscale) {
   __shared__ float k_s[kTile * kD];
   __shared__ float v_s[kTile * kD];
 
@@ -458,9 +488,9 @@ attn_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
   const long long c1 = (long long)heads * kD;
   const float* base = qkv + (long long)b * seq * c3 + (long long)h * 3 * kD;
   const float* gbase = dout + (long long)b * seq * c1 + (long long)h * kD;
-  const long long bh = ((long long)b * heads + h) * seq;
-  const float lse2 = qvalid ? lse[bh + qi] * kLog2e : INFINITY;
-  const float drow = qvalid ? delta[bh + qi] : 0.f;
+  const float2 st = stats[((long long)b * heads + h) * tpad + qi];  // pad rows: +inf, 0
+  const float lse2 = st.x;
+  const float drow = st.y;
 
   float qr[kHalf], gr[kHalf], dq[kHalf];
 #pragma unroll
@@ -503,46 +533,48 @@ attn_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
 
 // qkv and dqkv [batch, seq, 3*heads*64]; out and dout [batch, seq, heads*64];
 // all contiguous and of one type, float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1). lse [batch, heads, seq] f32 from the forward launch; delta
-// is f32 scratch of the same shape. qscale = scale^2 * log2(e), gscale =
-// scale^2. Writes every element of dqkv. Returns cudaGetLastError().
+// (is_bf16 = 1; qkv and dout 16-byte aligned). lse [batch, heads, seq] f32
+// from the forward launch; scratch is f32 [batch, heads, tpad, 2] with tpad
+// = seq rounded up to a multiple of 64. qscale = scale^2 * log2(e), gscale =
+// scale^2. Writes every element of dqkv. Returns a CUDA error code:
+// cudaErrorInvalidValue if the driver refuses a tensor map, else
+// cudaGetLastError() after the launches.
 extern "C" int packed_attention_bwd_launch(const void* qkv, const void* out, const void* dout,
-                                           const void* lse, void* delta, void* dqkv, int batch,
+                                           const void* lse, void* scratch, void* dqkv, int batch,
                                            int seq, int heads, float qscale, float gscale,
                                            int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)batch * seq * heads;
-  const unsigned dgrid = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
-  const dim3 grid((seq + kTile - 1) / kTile, heads, batch);
+  const int tpad = (seq + kTile - 1) / kTile * kTile;
+  const long long rows = (long long)batch * tpad * heads;
+  const int lanes = is_bf16 ? kD / 8 : kD / 4;  // the stats kernel's lanes per row
+  const unsigned sgrid = static_cast<unsigned>((rows * lanes + kThreads - 1) / kThreads);
+  const dim3 grid(tpad / kTile, heads, batch);
   const float* lse_f = static_cast<const float*>(lse);
-  float* delta_f = static_cast<float*>(delta);
+  float2* stats = static_cast<float2*>(scratch);
   if (is_bf16) {
-    const bf16* q = static_cast<const bf16*>(qkv);
-    const bf16* o = static_cast<const bf16*>(out);
-    const bf16* g = static_cast<const bf16*>(dout);
-    bf16* dq = static_cast<bf16*>(dqkv);
-    cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_bf16,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(kSmemBf16));
+    static bool opted_in[hopper::kMaxDevices] = {};
+    const cudaError_t err = hopper::smem_opt_in(attn_bwd_bf16, kSmemBf16, opted_in);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(attn_bwd_dq_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kSmemBf16));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_delta<bf16><<<dgrid, kThreads, 0, s>>>(o, g, delta_f, batch, seq, heads);
-    attn_bwd_dkdv_bf16<<<grid, kThreads, kSmemBf16, s>>>(q, g, lse_f, delta_f, dq, seq, heads,
-                                                         qscale, gscale);
-    attn_bwd_dq_bf16<<<grid, kThreads, kSmemBf16, s>>>(q, g, lse_f, delta_f, dq, seq, heads,
-                                                       qscale, gscale);
+    CUtensorMap qkv_map, do_map;
+    if (!hopper::make_tile_map(&qkv_map, qkv, 3ull * heads * kD, seq, batch) ||
+        !hopper::make_tile_map(&do_map, dout, 1ull * heads * kD, seq, batch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    attn_bwd_stats<bf16><<<sgrid, kThreads, 0, s>>>(static_cast<const bf16*>(out),
+                                                    static_cast<const bf16*>(dout), lse_f, stats,
+                                                    rows, seq, tpad, heads);
+    const dim3 grid2(tpad / kTile, heads, 2 * batch);  // dK/dV blocks, then dQ blocks
+    attn_bwd_bf16<<<grid2, kThreads, kSmemBf16, s>>>(qkv_map, do_map, stats,
+                                                     static_cast<bf16*>(dqkv), batch, seq, tpad,
+                                                     heads, qscale, gscale);
   } else {
     const float* q = static_cast<const float*>(qkv);
-    const float* o = static_cast<const float*>(out);
     const float* g = static_cast<const float*>(dout);
     float* dq = static_cast<float*>(dqkv);
-    attn_bwd_delta<float><<<dgrid, kThreads, 0, s>>>(o, g, delta_f, batch, seq, heads);
-    attn_bwd_dkdv_f32<<<grid, kThreads, 0, s>>>(q, g, lse_f, delta_f, dq, seq, heads, qscale,
-                                                gscale);
-    attn_bwd_dq_f32<<<grid, kThreads, 0, s>>>(q, g, lse_f, delta_f, dq, seq, heads, qscale,
-                                              gscale);
+    attn_bwd_stats<float><<<sgrid, kThreads, 0, s>>>(static_cast<const float*>(out), g, lse_f,
+                                                     stats, rows, seq, tpad, heads);
+    attn_bwd_dkdv_f32<<<grid, kThreads, 0, s>>>(q, g, stats, dq, seq, tpad, heads, qscale, gscale);
+    attn_bwd_dq_f32<<<grid, kThreads, 0, s>>>(q, g, stats, dq, seq, tpad, heads, qscale, gscale);
   }
   return static_cast<int>(cudaGetLastError());
 }

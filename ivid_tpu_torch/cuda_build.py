@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point (no PyTorch headers), so
 one ``nvcc`` call of a few seconds builds it. The shared library lands in
 ``ivid_tpu_torch/_build/`` (listed in ``.gitignore``), keyed by a hash of the
-source and the flags, and is built at first use (:func:`build` starts one
-nvcc per source at once): importing a module never touches nvcc or the GPU.
+source, the headers beside it and the flags, and is built at first use
+(:func:`build` starts one nvcc per source at once): importing a module never
+touches nvcc or the GPU. The attention kernels link the driver library
+(``-lcuda``) for ``cuTensorMapEncodeTiled``, which describes their TMA copies.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK = {"packed_attention": ["-lcuda"], "packed_attention_bwd": ["-lcuda"]}
 
 _libs: dict = {}
+_fns: dict = {}
 build_seconds: dict = {}
 build_log: dict = {}
 
@@ -41,16 +45,24 @@ def nvcc() -> str:
     return found
 
 
-def _library(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + LINK.get(name, [])
 
 
-def build(names) -> None:
-    """Build the missing libraries of ``names``, one nvcc process per source,
-    all started together."""
-    todo = [n for n in dict.fromkeys(names) if not _library(n).exists()]
+def _library(name: str, src_dir: Path = CSRC) -> Path:
+    src_dir = Path(src_dir)
+    blob = (Path(src_dir, f"{name}.cu").read_bytes()
+            + b"".join(p.read_bytes() for p in sorted(src_dir.glob("*.cuh")))
+            + " ".join(_flags(name)).encode())
+    if src_dir != CSRC:
+        blob += str(src_dir.resolve()).encode()
+    return BUILD_DIR / f"lib{name}-{hashlib.sha256(blob).hexdigest()[:16]}.so"
+
+
+def build(names, src_dir: Path = CSRC) -> None:
+    """Build the missing libraries of ``names`` (sources ``src_dir/<name>.cu``),
+    one nvcc process per source, all started together."""
+    todo = [n for n in dict.fromkeys(names) if not _library(n, src_dir).exists()]
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -58,7 +70,7 @@ def build(names) -> None:
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *_flags(name), "-o", tmp, str(Path(src_dir, f"{name}.cu"))]
         procs[name] = (tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
@@ -70,16 +82,30 @@ def build(names) -> None:
             os.unlink(tmp)
             failed.append(f"nvcc failed for {name}.cu:\n{out}\n{err}")
             continue
-        os.replace(tmp, _library(name))
+        os.replace(tmp, _library(name, src_dir))
         build_seconds[name] = time.perf_counter() - t0
         build_log[name] = err
     if failed:
         raise RuntimeError("\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
-    if name not in _libs:
-        build([name])
-        _libs[name] = ctypes.CDLL(str(_library(name)))
-    return _libs[name]
+def load(name: str, src_dir: Path = CSRC) -> ctypes.CDLL:
+    """Build ``src_dir/<name>.cu`` if its library is missing, then load it."""
+    key = (str(src_dir), name)
+    if key not in _libs:
+        build([name], src_dir)
+        _libs[key] = ctypes.CDLL(str(_library(name, src_dir)))
+    return _libs[key]
+
+
+def function(name: str, symbol: str, argtypes, src_dir: Path = CSRC):
+    """The C entry point ``symbol`` of library ``name``, returning an int
+    error code, with its argument types set once (pointers and the stream as
+    ``c_void_p``, so ctypes does not cut them to 32 bits)."""
+    key = (str(src_dir), name, symbol)
+    if key not in _fns:
+        fn = getattr(load(name, src_dir), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return _fns[key]

@@ -13,11 +13,13 @@ also stores each row's log-sum-exp; the backward launches
 ``ivid_tpu/ops/attention.py:_packed_bwd`` calls). The source notes say what
 bounds each and how it is built. On a CPU tensor both directions run
 :func:`reference_attention` under autograd, the same function in plain
-PyTorch.
+PyTorch. :func:`logsumexp_reference` and :func:`attention_backward_reference`
+are the plain versions of K1's log-sum-exp and of K4 in its formula form.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -45,6 +47,38 @@ def reference_attention(qkv: torch.Tensor, heads: int, scale: float) -> torch.Te
     return torch.einsum("bhts,bshd->bthd", w, v).reshape(b, t, c)
 
 
+def _split_heads(x: torch.Tensor, heads: int):
+    b, t, c3 = x.shape
+    return x.reshape(b, t, heads, c3 // heads).split(HEAD_DIM, dim=-1)
+
+
+def logsumexp_reference(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
+    """Plain version of K1's second output: the natural log-sum-exp of each
+    row's f32 logits ``scale² q·k``, ``[B, H, T]``."""
+    q, k, _ = _split_heads(qkv.float(), heads)
+    return torch.logsumexp(torch.einsum("bthd,bshd->bhts", q, k) * (scale * scale), dim=-1)
+
+
+def attention_backward_reference(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+                                 lse: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
+    """Plain version of K4 in its formula form, in f32, returned in qkv's
+    type: from the forward's ``qkv``, ``out`` and ``lse`` and the output
+    gradient ``dout``, with ``P = exp(s² q·k - lse)`` and ``D = rowsum(dO∘O)``:
+    ``dV = Pᵀ dO``, ``dS = P∘(dO Vᵀ - D)``, ``dQ = s² dS K``, ``dK = s² dSᵀ Q``."""
+    b, t, c3 = qkv.shape
+    s2 = scale * scale
+    q, k, v = _split_heads(qkv.float(), heads)
+    g = dout.float().reshape(b, t, heads, HEAD_DIM)
+    o = out.float().reshape(b, t, heads, HEAD_DIM)
+    p = torch.exp(torch.einsum("bthd,bshd->bhts", q, k) * s2 - lse.float()[..., None])
+    dv = torch.einsum("bhts,bthd->bshd", p, g)
+    d = (g * o).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (torch.einsum("bthd,bshd->bhts", g, v) - d)
+    dq = torch.einsum("bhts,bshd->bthd", ds, k) * s2
+    dk = torch.einsum("bhts,bthd->bshd", ds, q) * s2
+    return torch.cat([dq, dk, dv], dim=-1).reshape(b, t, c3).to(qkv.dtype)
+
+
 def _check(qkv: torch.Tensor, heads: int):
     if qkv.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"packed_attention takes float32 or bfloat16, got {qkv.dtype}")
@@ -55,6 +89,22 @@ def _check(qkv: torch.Tensor, heads: int):
         raise ValueError("packed_attention needs a contiguous, 16-byte aligned qkv tensor")
 
 
+# C signatures (csrc/packed_attention{,_bwd}.cu): pointers and the stream as
+# c_void_p, then ints and floats.
+_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
+                                                            ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
+    ctypes.c_int, ctypes.c_void_p]
+
+
+def _on_device(device: torch.device):
+    """No context switch when ``device`` is already the current one (the
+    usual case: a switch costs host time on every launch)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _launch(qkv: torch.Tensor, heads: int, scale: float, with_lse: bool = False):
     """K1: ``out [B, T, C]`` and, with ``with_lse``, the natural log-sum-exp
     ``lse [B, H, T]`` (f32) of each row's logits ``scale² q·k``."""
@@ -63,22 +113,15 @@ def _launch(qkv: torch.Tensor, heads: int, scale: float, with_lse: bool = False)
     global launches
     _check(qkv, heads)
     b, t, c3 = qkv.shape
-    lib = cuda_build.load("packed_attention")
-    fn = lib.packed_attention_fwd_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.function("packed_attention", "packed_attention_fwd_launch", _FWD_ARGS)
     out = torch.empty((b, t, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, heads, t), dtype=torch.float32, device=qkv.device)
            if with_lse else None)
     qscale = float(scale) * float(scale) * _LOG2E
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _on_device(qkv.device):
         rc = fn(
             qkv.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(), b, t, heads,
-            qscale, int(qkv.dtype == torch.bfloat16), stream,
+            qscale, int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"packed_attention kernel launch failed: CUDA error {rc}")
@@ -101,23 +144,21 @@ def _launch_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, lse: t
         raise TypeError("packed attention backward: out/dout must match qkv, lse must be f32")
     if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
         raise ValueError("packed attention backward needs contiguous tensors")
+    if out.data_ptr() % 16 or dout.data_ptr() % 16:
+        raise ValueError("packed attention backward needs 16-byte aligned out and dout")
     if any(x.device != qkv.device for x in (out, dout, lse)):
         raise ValueError("packed attention backward: tensors on different devices")
-    lib = cuda_build.load("packed_attention_bwd")
-    fn = lib.packed_attention_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.function("packed_attention_bwd", "packed_attention_bwd_launch", _BWD_ARGS)
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty((b, heads, t), dtype=torch.float32, device=qkv.device)
+    # Per-row (lse·log2 e, D) pairs, T padded to the kernels' 64-row tiles.
+    tpad = -(-t // 64) * 64
+    scratch = torch.empty((b, heads, tpad, 2), dtype=torch.float32, device=qkv.device)
     s2 = float(scale) * float(scale)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _on_device(qkv.device):
         rc = fn(
-            qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             dqkv.data_ptr(), b, t, heads, s2 * _LOG2E, s2,
-            int(qkv.dtype == torch.bfloat16), stream,
+            int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"packed attention backward launch failed: CUDA error {rc}")
