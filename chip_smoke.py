@@ -3,7 +3,7 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
 
-1. device: the card's name and power limit (nvidia-smi), then the four
+1. device: the card's name and power limit (nvidia-smi), then the six
    kernels built from ``ivid_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc
    per source, all at once;
 2. K1 (packed attention) against its plain version at [2, 1024, 768] (the
@@ -20,6 +20,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. K3 (z-buffer resolve) against its plain version on the first warp render
    of a training step: 8 SyntheticRGBDWarp 128² items at r=384;
 5. K2 on indexed triangles (the same render's skirt rings) at B=8 and B=1;
+   then K6 (the sort-then-tile resolve prototype) against its plain version
+   at ``bench_resolve``'s shape and, with ``tile_finish``, against K3 and the
+   scatter on the same render, its preparation and kernel timed beside K3's;
+   K5 (the pre-binned resolve prototype) against its plain version at
+   ``bench_micro``'s shape; then ``ivid_tpu_torch.bench_resolve.main`` and
+   ``ivid_tpu_torch.bench_micro.main`` at their defaults;
 6. K4 (packed attention backward) against autograd of the plain version
    and against its plain formula form at the training shape [8, 1024, 768],
    4 heads, and at the SR shapes, bf16 and f32;
@@ -39,9 +45,10 @@ Phases, each printing its own lines; any failure exits non-zero:
     over 10 more steps, then 2 steps under torch.profiler: kernels, device
     kernel time and idle share per step, and the top kernels.
 
-Each main path (10, 11) runs with every launch counter set to 0 just before
-it and read just after. Then one JSON line with every kernel's numbers, the
-nvidia-smi line, and the last line ``{"ok": true, "device": {...}}``.
+Each main path (the benches of 5, and 10, 11) runs with every launch
+counter set to 0 just before it and read just after. Then one JSON line
+with every kernel's numbers, the nvidia-smi line, and the last line
+``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 
 Times (``ivid_tpu_torch.timing``): a kernel's ``ms`` and the library call's
@@ -56,7 +63,6 @@ calls, which measure the host's issue time whenever that is longer.
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -94,6 +100,10 @@ K3_PAY_MAX = 1e-5
 # another order (f32 path); bf16 rounding of P and dS as product operands and
 # of the output, ~2^-9 relative per term (bf16 path).
 K4_F32_MAX, K4_BF16_REL = 1e-4, 1e-2
+# K5 and K6 vs their plain versions on the card: the depth minimum and the
+# winner count are one minimum and one count, equal on every pixel; the sums
+# differ by f32 sum order (K5 adds with atomics, in an order that varies).
+K56_SUM_MAX = 1e-5
 # Training chain on the card vs the CPU plain path (f32, TF32 off, the same
 # draws): the losses differ by f32 sum order and by warp-mask pixels on knife
 # edges; AdamW steps of ~1e-4 per element may flip sign where a gradient is
@@ -106,19 +116,12 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 
 
-KERNELS = ("packed_attention", "packed_attention_bwd", "dense_raster", "zbuffer_resolve")
+KERNELS = ("packed_attention", "packed_attention_bwd", "dense_raster", "zbuffer_resolve",
+           "binned_resolve", "tile_resolve")
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_time_ms(fn, reps=20, warmup=3):
@@ -143,14 +146,14 @@ def timed(fn, match=None):
 
 
 def phase_device():
-    from ivid_tpu_torch import cuda_build
+    from ivid_tpu_torch import cuda_build, timing
 
     pkg = os.path.dirname(cuda_build.__file__)
     if os.path.dirname(pkg) != ROOT:
         raise RuntimeError(f"ivid_tpu_torch imported from {pkg}, not from this checkout")
     import torch
 
-    smi = nvidia_smi_line()
+    smi = timing.card_line()
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     cuda_build.build(KERNELS)
@@ -477,6 +480,177 @@ def phase_skirt(f, r):
     return out
 
 
+def compare_tiles(got, want, tag):
+    """K5/K6 output [T, 5, 1024] against its plain version: the depth (row 0)
+    and, for K6, the count (row 4) on every pixel; the sums within
+    K56_SUM_MAX. Returns (pixels differing, largest sum error)."""
+    exact = [0] if tag == "K5" else [0, 4]
+    sums = [1, 2, 3, 4] if tag == "K5" else [1, 2, 3]
+    bad = int((got[:, exact] != want[:, exact]).sum())
+    err = (got[:, sums] - want[:, sums]).abs().max().item()
+    return bad, err
+
+
+def tile_bytes(bounds, lp):
+    """The bytes K6 must move on these inputs: the bounds, lp, z and payload
+    (20 bytes) of each fragment in the tiles' ranges that falls on a pixel
+    (the others sort last in their tile and are cut off by a search), and
+    the [T, 5, 1024] f32 output."""
+    from ivid_tpu_torch.ops import resolve_variants as rv
+
+    seg = lp[int(bounds[0]):int(bounds[-1])]
+    falls = int(((seg >= 0) & (seg < rv.TILE)).sum())
+    tiles = bounds.numel() - 1
+    return bounds.numel() * 4 + falls * 20 + tiles * 5 * rv.TILE * 4
+
+
+def phase_binned():
+    """K5 against its plain version at ``bench_micro``'s shape (144 tiles of
+    4,608 pre-binned fragments), then on inputs with local pixels outside
+    the tile and negative depths."""
+    import torch
+
+    from ivid_tpu_torch import bench_micro
+    from ivid_tpu_torch.ops import resolve_variants as rv
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tiles = bench_micro.R * bench_micro.R // rv.TILE
+    f = bench_micro.N // tiles // 512 * 512
+    lp, z, pay = bench_micro.binned_tiles(gen, tiles, f)
+    bad, err = compare_tiles(rv.binned_resolve(lp, z, pay), rv.binned_resolve_reference(lp, z, pay),
+                             "K5")
+    lp2 = lp - 8 + (lp % 7 == 0).int() * 16  # some below 0 and some past 1023
+    z2 = z - 0.5
+    bad2, err2 = compare_tiles(rv.binned_resolve(lp2, z2, pay),
+                               rv.binned_resolve_reference(lp2, z2, pay), "K5")
+    torch.cuda.synchronize()
+    log(f"[K5] {tiles} tiles x {f} pre-binned fragments: pixels whose depth differs {bad}, "
+        f"max|sum err| {err:.3e}; with local pixels outside the tile and negative depths: "
+        f"{bad2}, {err2:.3e} (0 and <= {K56_SUM_MAX})")
+    if bad or bad2 or not max(err, err2) <= K56_SUM_MAX:
+        raise RuntimeError("K5 disagrees with its plain version")
+    ms, host = timed(lambda: rv.binned_resolve(lp, z, pay), match="binned_resolve")
+    plain_ms = cuda_time_ms(lambda: rv.binned_resolve_reference(lp, z, pay))
+    nbytes = lp.numel() * 4 + int(((lp >= 0) & (lp < rv.TILE)).sum()) * 20 + tiles * 5 * rv.TILE * 4
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"[K5] kernel {ms:.4f} ms device, {host:.4f} host (bound {bound:.4f} ms by bytes: "
+        f"{nbytes / 1e6:.1f} MB), plain version (scatters) {plain_ms:.4f} ms")
+    return {
+        "name": "binned_resolve", "route": "cuda",
+        "source": "ivid_tpu_torch/csrc/binned_resolve.cu", "replaces": "bench_micro.py:131",
+        "max_abs_err": max(err, err2), "ms": ms, "host_ms": host, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": None, "shape": [tiles, f],
+    }
+
+
+def phase_tile(f, r):
+    """K6 against its plain version at ``bench_resolve``'s shape (733,184
+    clustered fragments at 384²), then on the warp render's fragments
+    (``warp_render_inputs``, first 3 payload channels): K6 + ``tile_finish``
+    against K3 and the scatter, and the preparation and kernel of K6 and of
+    K3 timed side by side, all in device ms."""
+    import torch
+
+    from ivid_tpu_torch import bench_resolve
+    from ivid_tpu_torch.ops import raster, raster_tiled
+    from ivid_tpu_torch.ops import resolve_variants as rv
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    fb, pay = bench_resolve.make_batch(gen, bench_resolve.N, bench_resolve.R)
+    npix = bench_resolve.R ** 2
+    prepared = rv.prepare_tiles(fb.pixel, fb.depth, pay, fb.valid, npix)
+    bad, err = compare_tiles(rv.tile_resolve(*prepared), rv.tile_resolve_reference(*prepared), "K6")
+    torch.cuda.synchronize()
+    log(f"[K6] {bench_resolve.N} clustered fragments at {bench_resolve.R}², "
+        f"{npix // rv.TILE} tiles: values differing in depth or count {bad} (0), max|sum err| "
+        f"{err:.3e} (<= {K56_SUM_MAX})")
+    if bad or not err <= K56_SUM_MAX:
+        raise RuntimeError("K6 disagrees with its plain version")
+    ms, host = timed(lambda: rv.tile_resolve(*prepared), match="tile_resolve")
+    plain_ms = cuda_time_ms(lambda: rv.tile_resolve_reference(*prepared))
+    prep_ms, _ = timed(lambda: rv.prepare_tiles(fb.pixel, fb.depth, pay, fb.valid, npix))
+    nbytes = tile_bytes(*prepared[:2])
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"[K6] kernel {ms:.4f} ms device, {host:.4f} host (bound {bound:.4f} ms by bytes: "
+        f"{nbytes / 1e6:.1f} MB), prep (sort, tile search) {prep_ms:.4f} ms device, plain "
+        f"version (scatters) {plain_ms:.4f} ms")
+
+    frags, pays = [f["fragments"]], [f["payload"]]
+    pay3 = [f["payload"][..., :3]]
+    B = f["win"].shape[0]
+    wnpix = B * r * r
+
+    def k6_prep():
+        pix, d, valid, p = raster._concat(frags, pay3)
+        return rv.prepare_tiles(pix, d, p, valid, wnpix)
+
+    w_in = k6_prep()
+    w_out = rv.tile_resolve(*w_in)
+    w_bad, w_err = compare_tiles(w_out, rv.tile_resolve_reference(*w_in), "K6")
+    if w_bad or not w_err <= K56_SUM_MAX:
+        raise RuntimeError(f"K6 disagrees with its plain version on the warp render: {w_bad} "
+                           f"depth/count values differ, max|sum err| {w_err:.3e}")
+    # K6 + tile_finish against K3 and the scatter (raises past bench_resolve.PAY_TOL).
+    got = rv.tile_finish(w_out, r, B)
+    errs = {}
+    for tag, want in (("K3", raster_tiled.resolve_zbuffer_tiled(frags, pays, r, B)),
+                      ("scatter", raster.resolve_zbuffer_scatter(frags, pays, r, B))):
+        errs[tag] = bench_resolve.compare(got, (want[0][..., :3], want[1], want[2]), f"K6 vs {tag}")
+    log(f"[K6] warp render {B} x {r}², {wnpix // rv.TILE} tiles: against its plain version "
+        f"depth and count equal, max|sum err| {w_err:.3e}; K6 + tile_finish against K3 and the "
+        f"scatter: coverage and depth equal on every pixel, max|payload err| {errs['K3']:.3e} "
+        f"and {errs['scatter']:.3e} (<= {bench_resolve.PAY_TOL})")
+    k3_in = raster_tiled.prepare(frags, pays, r, B)
+    pix, _, valid, pay4 = raster._concat(frags, pays)
+    keys = torch.where(valid, pix, torch.full_like(pix, wnpix))
+    keys_s, order = torch.sort(keys, stable=True)
+    edges = torch.arange(wnpix + 1, device=keys.device)
+    w = {
+        "K6 prep": timed(k6_prep)[0],
+        "K6 kernel": timed(lambda: rv.tile_resolve(*w_in), match="tile_resolve")[0],
+        "K3 prep": timed(lambda: raster_tiled.prepare(frags, pays, r, B))[0],
+        "K3 kernel": timed(lambda: raster_tiled.launch(*k3_in, r, B), match="zbuffer_resolve")[0],
+        "K3 run search": timed(lambda: torch.searchsorted(keys_s, edges))[0],
+        "sort": timed(lambda: torch.sort(keys, stable=True))[0],
+        "K3 payload gather": timed(lambda: pay4[order])[0],
+    }
+    w_bytes = tile_bytes(*w_in[:2])
+    log(f"[K6] warp render, device ms: K6 prep (sort, tile search) {w['K6 prep']:.4f}, K6 kernel "
+        f"{w['K6 kernel']:.4f} (bound {w_bytes / PEAK_BYTES * 1e3:.4f} ms by bytes: "
+        f"{w_bytes / 1e6:.1f} MB); K3 prep (sort, run search) {w['K3 prep']:.4f}, K3 kernel "
+        f"{w['K3 kernel']:.4f}; of the preps, the stable sort of the keys alone "
+        f"{w['sort']:.4f}, K3's run search alone ({wnpix + 1} edges) {w['K3 run search']:.4f}, "
+        f"K3's gather of the [N, 4] payload rows alone {w['K3 payload gather']:.4f}")
+    return {
+        "name": "tile_resolve", "route": "cuda", "source": "ivid_tpu_torch/csrc/tile_resolve.cu",
+        "replaces": "bench_resolve.py:136", "max_abs_err": max(err, w_err), "ms": ms,
+        "host_ms": host, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+        "library_ms": None, "prep_ms": prep_ms, "fragments": bench_resolve.N,
+        "warp": {"buffers": B, "fragments": int(w_in[1].numel()),
+                 "valid_fragments": int(f["fragments"].valid.sum()),
+                 "bound_ms": w_bytes / PEAK_BYTES * 1e3,
+                 "max_payload_err_vs_k3": errs["K3"], **{k.replace(" ", "_") + "_ms": v
+                                                            for k, v in w.items()}},
+    }
+
+
+def phase_benches():
+    """``bench_resolve.main`` and ``bench_micro.main`` at their defaults, with
+    the launch counters read around them."""
+    from ivid_tpu_torch import bench_micro, bench_resolve
+
+    reset_counts()
+    t0 = time.perf_counter()
+    bench_resolve.main([])
+    bench_micro.main([])
+    counts = read_counts()
+    log(f"[benches] bench_resolve.main and bench_micro.main in {time.perf_counter() - t0:.2f} s: "
+        f"launches {counts} (K5 >= 1, K6 >= 1)")
+    if not (counts["K5"] >= 1 and counts["K6"] >= 1):
+        raise RuntimeError("the benches did not launch K5 and K6")
+    return counts
+
+
 def phase_attention_backward(b=8, t=1024, heads=4, seed=3, time_f32=True):
     """K4 at [b, t, 3·heads·64] against autograd of the plain version and
     against the plain formula form (``attention_backward_reference``) on the
@@ -638,17 +812,19 @@ class HostNoise:
 
 
 def reset_counts():
-    from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled
+    from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled, resolve_variants
 
     attention.launches = attention.bwd_launches = 0
     raster_dense.launches = raster_tiled.launches = 0
+    resolve_variants.binned_launches = resolve_variants.tile_launches = 0
 
 
 def read_counts():
-    from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled
+    from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled, resolve_variants
 
     return {"K1": attention.launches, "K2": raster_dense.launches,
-            "K3": raster_tiled.launches, "K4": attention.bwd_launches}
+            "K3": raster_tiled.launches, "K4": attention.bwd_launches,
+            "K5": resolve_variants.binned_launches, "K6": resolve_variants.tile_launches}
 
 
 def phase_chain(device="cuda"):
@@ -754,7 +930,7 @@ def phase_pipeline():
         f"launches: K1 {k1} (>= {5 * 1050}), K2 {k2} (>= 1)")
     if not (np.isfinite(samples).all() and samples.shape == (2, 2, 128, 128, 4)
             and len(scenes) == 2 and len(images) == 2 and k1 >= 5 * 1050 and k2 >= 1
-            and counts["K3"] == counts["K4"] == 0):
+            and counts["K3"] == counts["K4"] == counts["K5"] == counts["K6"] == 0):
         raise RuntimeError("pipeline run failed its checks")
     return counts
 
@@ -811,7 +987,7 @@ def phase_train_chain():
         f"{param_rel:.3e} (<= {TRAIN_PARAM_REL})")
     if not (loss_rel <= TRAIN_LOSS_REL and param_rel <= TRAIN_PARAM_REL
             and np.isfinite(got_loss).all()
-            and counts == {"K1": 9, "K2": 3, "K3": 6, "K4": 9}):
+            and counts == {"K1": 9, "K2": 3, "K3": 6, "K4": 9, "K5": 0, "K6": 0}):
         raise RuntimeError("the training chain on the card disagrees with the CPU plain path")
     torch.backends.cudnn.allow_tf32 = True
 
@@ -873,7 +1049,8 @@ def phase_train():
         f"reloaded step {again_step} equal {reloaded}")
     if not (np.isfinite(losses).all() and len(losses) == steps and finite and changed > 0
             and reloaded and counts["K1"] == 5 * steps and counts["K4"] == 5 * steps
-            and counts["K3"] == 2 * steps and counts["K2"] >= steps):
+            and counts["K3"] == 2 * steps and counts["K2"] >= steps
+            and counts["K5"] == counts["K6"] == 0):
         raise RuntimeError("training run failed its checks")
     return counts, tr
 
@@ -949,7 +1126,10 @@ def main():
     k2 = phase_raster()
     k3, warp_inputs, r = phase_resolve()
     skirt8, skirt1 = phase_skirt(warp_inputs, r)
+    k6 = phase_tile(warp_inputs, r)
     del warp_inputs
+    k5 = phase_binned()
+    benches = phase_benches()
     k4 = phase_attention_backward()
     k4["other_shapes"] = [phase_attention_backward(2, 4096, 4, seed=7, time_f32=False),
                           phase_attention_backward(2, 1024, 6, seed=8, time_f32=False)]
@@ -970,11 +1150,16 @@ def main():
         entry["launches"] = path[key]
         entry["launches_by_path"] = {"sampling": sampling[key], "training": training[key]}
     skirt1["launches"] = 0
+    # K5 and K6: the count of the bench runs, their only path.
+    for entry, key in ((k5, "K5"), (k6, "K6")):
+        entry["launches"] = benches[key]
+        entry["launches_by_path"] = {"sampling": sampling[key], "training": training[key],
+                                     "benches": benches[key]}
     from ivid_tpu_torch import timing
 
     log(f"[timing] device-time readings taken by queued CUDA events instead of "
         f"torch.profiler: {timing.fallbacks}")
-    log(json.dumps({"kernels": [k1, k1_train, k2, skirt8, skirt1, k3, k4]}))
+    log(json.dumps({"kernels": [k1, k1_train, k2, skirt8, skirt1, k3, k4, k5, k6]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import subprocess
 from pathlib import Path
 
 import torch
@@ -120,9 +119,7 @@ def main(argv=None):
             line["max_abs_diff_vs_other"] = (
                 results["this"].float() - results["other"].float()).abs().max().item()
         print(json.dumps(line), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[torch.cuda.current_device()], flush=True)
+    print(timing.card_line(), flush=True)
 
 
 if __name__ == "__main__":

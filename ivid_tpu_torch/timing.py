@@ -11,10 +11,15 @@ calls:
 - :func:`host_ms`: CUDA events recorded before and after the run. When the
   host issues calls more slowly than the device runs them, this measures the
   host; the gap to :func:`device_ms` is the host overhead.
+
+:func:`call_ms` gives the benches' pair (or a host time on the CPU), and
+:func:`card_line` the card's name and power limit to print beside them.
 """
 
 from __future__ import annotations
 
+import subprocess
+import time
 import warnings
 
 import torch
@@ -120,3 +125,25 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, match: str | None = None) -> 
                       f"does not count: {seen}", stacklevel=2)
     fallbacks += 1
     return queued_ms(fn, reps, warmup=0)
+
+
+def call_ms(fn, device: torch.device) -> dict:
+    """The times of one call of ``fn`` as the port's benches report them. On a
+    CUDA device ``{"ms": device_ms, "host_ms": host_ms}``. On the CPU
+    ``{"cpu_ms": ...}``, the host clock's mean over 3 calls after one, which
+    times PyTorch's CPU kernels and is no device time."""
+    if device.type == "cuda":
+        return {"ms": device_ms(fn), "host_ms": host_ms(fn)}
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    return {"cpu_ms": (time.perf_counter() - t0) / 3 * 1e3}
+
+
+def card_line() -> str:
+    """The current card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[torch.cuda.current_device()]

@@ -33,6 +33,7 @@ def test_other_directory_and_link_flags_change_the_key(tmp_path):
     assert cuda_build._flags("packed_attention")[-1] == "-lcuda"
     assert cuda_build._flags("packed_attention_bwd")[-1] == "-lcuda"
     assert "-lcuda" not in cuda_build._flags("dense_raster")
-    for name in ("packed_attention", "packed_attention_bwd", "dense_raster", "zbuffer_resolve"):
+    for name in ("packed_attention", "packed_attention_bwd", "dense_raster", "zbuffer_resolve",
+                 "binned_resolve", "tile_resolve"):
         assert (cuda_build.CSRC / f"{name}.cu").exists()
         assert cuda_build._library(name).name.startswith(f"lib{name}-")

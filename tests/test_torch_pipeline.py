@@ -194,6 +194,8 @@ def test_port_imports_no_jax():
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ivid_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'ivid_tpu_torch.sample' in sys.modules\n"
+        "assert 'ivid_tpu_torch.bench_resolve' in sys.modules\n"
+        "assert 'ivid_tpu_torch.bench_micro' in sys.modules\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
