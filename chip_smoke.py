@@ -15,11 +15,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    cross-check of the two device-time readings); then the same checks
    at the SR cascade's shapes [2, 4096, 768] (T=4096) and [2, 1024, 1152]
    (6 heads);
-3. K2 (dense grid raster) against its plain version on live aggregation
-   slots: four 128² seeded RGBD meshes rendered at r=384 from an orbit view;
+3. K2 (the binned dense raster: bins, then one block per 16x16 tile)
+   against its plain version on live aggregation slots, 128² seeded RGBD
+   meshes rendered at r=384 from an orbit view, at 4 slots and at 26 (the
+   last view of a ``3x9`` scene): depth, coverage and front equal on every
+   pixel, two launches bit-equal; timed with the glue between its kernels
+   and the columns, the public call on the host, and bounded by the bytes
+   it must move or the plane evaluations at the pixels each triangle
+   covers;
 4. K3 (z-buffer resolve) against its plain version on the first warp render
    of a training step: 8 SyntheticRGBDWarp 128² items at r=384;
-5. K2 on indexed triangles (the same render's skirt rings) at B=8 and B=1;
+5. K2 on indexed triangles (the same render's skirt rings) at B=8 and B=1,
+   checked and timed as in 3;
    then K6 (the sort-then-tile resolve prototype) against its plain version
    at ``bench_resolve``'s shape and, with ``tile_finish``, against K3 and the
    scatter on the same render, its preparation and kernel timed beside K3's;
@@ -37,7 +44,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    AdamW steps, K1/K4/K3/K2 on its path) on the card against the CPU plain
    path with the same weights and draws;
 10. the sampling pipeline through ``ivid_tpu_torch.sample.main``: random
-    viewset, batch 2, 1000-step DDPM then 50-step guided DDIM;
+    viewset, batch 2, 1000-step DDPM then 50-step guided DDIM, with the
+    host's wait for K2's bins (one per raster call);
 11. training through ``ivid_tpu_torch.train.main``: the full-width
     single-category cond model on SyntheticRGBDWarp 128², batch 8, 6 AdamW
     steps with a checkpoint at step 3 and a reload;
@@ -78,10 +86,9 @@ COND_CFG = os.path.join(ROOT, "configs", "rgbd_singlecategory_adm_128_small_cond
 K1_BF16_MAX, K1_BF16_MEAN = 2e-2, 2e-3
 # K1 f32 vs plain f32 (TF32 off): only the summation order differs.
 K1_F32_MAX = 1e-4
-# K2 vs plain: both evaluate the planes with the same f32 roundings, so only
-# measure-zero pixel-centre ties may flip (a depth differs when off by > 1e-6);
-# attrs where both agree on the winning depth differ only by tie-sum order.
-K2_PIXEL_FRAC, K2_ATTR_MAX = 1e-3, 1e-3
+# K2 vs plain: both evaluate the planes with the same f32 roundings, so depth,
+# coverage and front are equal on every pixel; the attrs differ only by the
+# tie sums' order (ivid_tpu_torch.bench_raster.ATTR_MAX, 1e-3).
 # UNet on the card (f32, TF32 off, K1) vs the CPU plain path: accumulation
 # order across ~100 layers.
 UNET_REL = 1e-3
@@ -265,148 +272,71 @@ def phase_attention(b, seed, training, t=1024, heads=4, time_f32=True):
     return entry
 
 
-def live_slots(dev, n=4, s=128, seed=0):
-    """n seeded 128² depth maps lifted to frustum-skirt meshes from orbit
-    cameras, stacked, and the render camera."""
-    import numpy as np
-    import torch
+def k2_phase(tag, name, replaces, inp):
+    """K2 on one input (``ivid_tpu_torch.bench_raster``): checked against its
+    plain version, timed, and bounded. Returns its kernels-line entry."""
+    from ivid_tpu_torch import bench_raster as br
 
-    from ivid_tpu_torch.inference.viewsets import _orbit
-    from ivid_tpu_torch.ops import geometry as geom
-
-    rng = np.random.default_rng(seed)
-    ii = np.linspace(0, 1, s)
-    yy, xx = np.meshgrid(ii, ii, indexing="ij")
-    meshes = []
-    for v in range(n):
-        ph = rng.uniform(0, 6.28)
-        d01 = np.clip(0.35 + 0.3 * yy + 0.04 * np.sin(xx * 9 + ph)
-                      + 0.05 * np.sin(xx * 21) * np.sin(yy * 17), 0.05, 0.95)
-        mv = _orbit(rng.uniform(-0.35, 0.35), rng.uniform(-0.2, 0.2))
-        depth = torch.from_numpy(d01.astype(np.float32)[..., None]).to(dev)
-        meshes.append(geom.depth_to_mesh(
-            geom.linearize_depth(depth, 0.6, 5.0), padding="frustum", fov=45.0,
-            modelview=torch.from_numpy(mv).to(dev), atol=0.03, rtol=0.03,
-            erode_rgb=3, cal_normal=True,
-        ))
-    target = torch.from_numpy(_orbit(0.2, 0.1)).to(dev)
-    return geom.stack_meshes(meshes), target
-
-
-def compare_dense(got, want, tag):
-    """Pixel mismatch fractions and the attribute error where both agree on
-    the depth; raises past the K2 tolerances."""
-    cov_frac = (got.covered != want.covered).float().mean().item()
-    front_frac = (got.front != want.front).float().mean().item()
-    same_z = got.covered & want.covered & ((got.depth - want.depth).abs() <= 1e-6)
-    depth_frac = 1.0 - (same_z | (~got.covered & ~want.covered)).float().mean().item()
-    attr_err = (got.attrs - want.attrs).abs()[same_z].max().item() if same_z.any() else 0.0
-    log(f"[{tag}] covered {want.covered.float().mean().item():.3f}; mismatched pixels: "
-        f"coverage {cov_frac:.2e}, front {front_frac:.2e}, depth {depth_frac:.2e} "
-        f"(each <= {K2_PIXEL_FRAC}); max|attr err| where both agree on depth {attr_err:.3e} "
-        f"(<= {K2_ATTR_MAX}) over {got.covered.numel()} pixels")
-    if not (cov_frac <= K2_PIXEL_FRAC and front_frac <= K2_PIXEL_FRAC
-            and depth_frac <= K2_PIXEL_FRAC and attr_err <= K2_ATTR_MAX and same_z.any()):
-        raise RuntimeError(f"{tag}: K2 disagrees with its plain version")
-    return attr_err, max(cov_frac, front_frac, depth_frac)
-
-
-def k2_bound_ms(tables, r):
-    """Least time for K2 on these tables: the plane evaluations they ask for
-    (every pixel of a row against the 128 triangles of each chunk the row
-    visits, 6 planes x 2 multiplies + 2 adds) at the f32 peak, or the table
-    and output bytes at the memory rate, whichever is larger."""
-    import torch
-
-    lohi, spans, glob, geom, pay = tables
-    B, nc = spans.shape[0], spans.shape[1]
-    c = torch.arange(nc, device=geom.device)[None, None, :]
-    y = torch.arange(r, device=geom.device)[None, :, None]
-    band = (c >= lohi[..., 0:1]) & (c < lohi[..., 1:2])
-    glb = (c >= glob[:, None, 0:1]) & (c < glob[:, None, 1:2])
-    in_span = (spans[:, None, :, 0] <= y) & (spans[:, None, :, 1] >= y)
-    visits = ((band | glb) & in_span).sum().item()
-    flops = visits * 128 * r * 6 * 4
-    out_bytes = B * r * r * (1 + pay.shape[1] // nc) * 4
-    nbytes = sum(x.numel() * x.element_size() for x in tables) + out_bytes
-    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-
-
-def phase_raster():
-    import torch
-
-    from ivid_tpu_torch.ops import camera as cam
-    from ivid_tpu_torch.ops import raster, raster_dense, renderer
-
-    dev = torch.device("cuda")
-    r, n = 384, 4
-    meshes, target = live_slots(dev, n)
-    g = int(round(meshes.positions.shape[1] ** 0.5))
-    attrs = renderer._aggregation_attrs(meshes)
-    mvp = (cam.perspective(45.0, 1.0, 0.01, 200.0, device=dev) @ target).expand(n, 4, 4)
-    win, w = raster.project_vertices(meshes.positions, mvp, r)
-    A = attrs.shape[-1]
-    cols = raster_dense.grid_cols(win, w, attrs, meshes.positions, g, 3)
-    tables = raster_dense.prep_pack(*cols, r, A)
-    got = raster_dense.raster_rows(tables, r, A)
-    want = raster_dense.raster_rows_reference(tables, r, A)
-    torch.cuda.synchronize()
-    log(f"[K2] {n} slots x {r}² ({g}² grid, {cols[0][0].shape[1]} tris/slot, "
-        f"{tables[3].shape[1] // 8} chunks/slot)")
-    attr_err, mismatch = compare_dense(got, want, "K2")
-    ms, host = timed(lambda: raster_dense._launch(tables, r, A), match="dense_raster")
-    finish_ms = cuda_time_ms(lambda: raster_dense.raster_rows(tables, r, A))
-    plain_ms = cuda_time_ms(lambda: raster_dense.raster_rows_reference(tables, r, A), reps=3, warmup=1)
-    prep_ms = cuda_time_ms(lambda: raster_dense.prep_pack(
-        *raster_dense.grid_cols(win, w, attrs, meshes.positions, g, 3), r, A))
-    bound, bound_by = k2_bound_ms(tables, r)
-    log(f"[K2] {n} slots: kernel {ms:.4f} ms device ({ms / n:.4f} ms/slot; host {host:.4f} ms; "
-        f"bound {bound:.4f} ms by {bound_by}), kernel+finish {finish_ms:.4f} ms, plain+finish {plain_ms:.4f} ms, "
-        f"table prep (torch) {prep_ms:.4f} ms")
+    r, A = inp.r, inp.A
+    cols = inp.cols()
+    B = cols.valid.shape[0]
+    st = br.check(cols, r, A)
+    bound, bound_by, work = br.bound_ms(cols, r, A)
+    del cols
+    t = br.measure(inp, st["listed"])
+    th = t["this"]
+    log(f"[{tag}] {B} buffers x {r}², {work['valid_triangles']} valid triangles, covered "
+        f"{st['covered']:.3f}: pixels differing from "
+        f"the plain version {st['pixels_differing']} (all 0), max|attr err| "
+        f"{st['max_abs_err']:.3e} (<= {br.ATTR_MAX}), two launches bit-equal "
+        f"{st['bit_equal_relaunch']}; bins per 16x16 tile mean {st['bins_per_tile_mean']:.1f}, "
+        f"max {st['bins_per_tile_max']}; pixels with tied winners {st['tied_pixels']} (most "
+        f"winners {st['most_winners']}) in {st['tiles_with_a_tie']} tiles")
+    log(f"[{tag}] device ms: bins {th['bins']:.4f} + raster {th['raster']:.4f} = kernels "
+        f"{th['kernels']:.4f} (bound {bound:.4f} ms by {bound_by}: {work['bytes'] / 1e6:.1f} MB; "
+        f"{work['covered_pairs']} covered (pixel, triangle) pairs, "
+        f"{work['operations'] / 1e6:.1f} M unfused f32 operations); with the glue between them "
+        f"{th['all']:.4f}; host ms "
+        f"(events): the public call {th['call_host_ms']:.4f}, of which waiting for the bins' "
+        f"length {th['sync_host_ms']:.4f}, the columns {th['columns_host_ms']:.4f}, the plain "
+        f"version {t['plain_ms']:.4f}")
     return {
-        "name": "dense_raster", "route": "cuda",
-        "source": "ivid_tpu_torch/csrc/dense_raster.cu",
-        "replaces": "ivid_tpu/ops/raster_dense.py:467",
-        "max_abs_err": attr_err, "ms": ms, "host_ms": host, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "mismatch_frac": mismatch,
-        "slots": n,
-        "with_finish_ms": finish_ms, "prep_ms": prep_ms,
+        "name": name, "route": "cuda", "source": "ivid_tpu_torch/csrc/dense_raster.cu",
+        "replaces": replaces, "max_abs_err": st["max_abs_err"], "ms": th["kernels"],
+        "plain_ms": t["plain_ms"], "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        "buffers": B, "bins_ms": th["bins"], "raster_ms": th["raster"], "with_glue_ms": th["all"],
+        "call_host_ms": th["call_host_ms"],
+        "sync_host_ms": th["sync_host_ms"], "columns_host_ms": th["columns_host_ms"],
+        **{k: st[k] for k in ("bins_per_tile_mean", "bins_per_tile_max", "tied_pixels",
+                              "most_winners", "tiles_with_a_tie")}, **work,
     }
 
 
-def warp_render_inputs(dev, batch=8, s=128, seed=0):
-    """The first render of a training step's warp: ``batch`` SyntheticRGBDWarp
-    items of the cond config at s², each lifted with an s-pixel skirt and seen
-    from a drawn orbit pose, as ``renderer.simple_fragments`` gives them at
-    r = 3s."""
+def phase_raster():
+    """K2 on the aggregation's live slots, 4 and 26 at r=384."""
     import torch
 
-    from ivid_tpu_torch.config import Config
-    from ivid_tpu_torch.data import SyntheticRGBDWarp
-    from ivid_tpu_torch.ops import geometry as geom
-    from ivid_tpu_torch.ops import renderer
-    from ivid_tpu_torch.ops import warp as warp_ops
-    from ivid_tpu_torch.training import warp_cond
+    from ivid_tpu_torch import bench_raster as br
 
-    args = dict(Config.load(COND_CFG).dataset["args"], image_size=s)
-    ds = SyntheticRGBDWarp(**args)
-    x01 = torch.stack([torch.from_numpy(ds[i]["x_0"]) for i in range(batch)]).to(dev) * 0.5 + 0.5
-    rng = HostNoise(seed, dev)
-    pre = [warp_cond.presample(x, rng, augments=ds.augments, pose_std=ds.std) for x in x01]
-    mv0 = warp_ops.default_modelview(dev)
-    mesh = geom.stack_meshes([
-        geom.depth_to_mesh(geom.linearize_depth(p[0][..., 3:], ds.near, ds.far), padding=s,
-                           modelview=mv0)
-        for p in pre
-    ])
-    mv1 = torch.stack([p[1] for p in pre])
-    return renderer.simple_fragments(mesh, mv1, 45.0, 3 * s, 0.1, 200.0), 3 * s
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's tie sums
+    log(f"[K2] ptxas [registers, spilled bytes] {br.k2_registers()}")
+    dev = torch.device("cuda")
+    for name, st in br.hazard_checks(dev).items():
+        log(f"[K2 {name}] {st['pixels']} pixels, covered {st['covered']:.3f}: pixels differing "
+            f"from the plain version {st['pixels_differing']} (all 0), max|attr err| "
+            f"{st['max_abs_err']:.3e}, two launches bit-equal {st['bit_equal_relaunch']}; tied "
+            f"pixels {st['tied_pixels']}, most winners {st['most_winners']}")
+    entries = [k2_phase(f"K2 {n} slots", "dense_raster", "ivid_tpu/ops/raster_dense.py:467",
+                        br.slot_input(dev, n)) for n in (4, 26)]
+    entries[0]["slots"], entries[1]["slots"] = 4, 26
+    entries[0]["other_shapes"] = entries[1:]
+    return entries[0]
 
 
 def phase_resolve():
     import torch
 
+    from ivid_tpu_torch.bench_raster import warp_render_inputs
     from ivid_tpu_torch.ops import raster, raster_tiled
 
     dev = torch.device("cuda")
@@ -448,36 +378,11 @@ def phase_resolve():
 
 def phase_skirt(f, r):
     """K2 on the warp render's skirt rings (indexed triangles), B=8 and B=1."""
-    from ivid_tpu_torch.ops import raster_dense
+    from ivid_tpu_torch import bench_raster as br
 
-    out = []
-    for tag, sl in (("K2 skirt B=8", slice(None)), ("K2 skirt B=1", slice(0, 1))):
-        win, w, attrs, ring = f["win"][sl], f["w"][sl], f["attrs"][sl], f["ring"][sl]
-        A = attrs.shape[-1]
-        tables = raster_dense.prep_pack(*raster_dense.tri_cols(win, w, attrs, ring, None), r, A)
-        got = raster_dense.raster_rows(tables, r, A)
-        want = raster_dense.raster_rows_reference(tables, r, A)
-        log(f"[{tag}] {win.shape[0]} rings of {ring.shape[1]} triangles at {r}²")
-        attr_err, mismatch = compare_dense(got, want, tag)
-        ms, host = timed(lambda: raster_dense._launch(tables, r, A), match="dense_raster")
-        plain_ms = cuda_time_ms(lambda: raster_dense.raster_rows_reference(tables, r, A),
-                                reps=3, warmup=1)
-        prep_ms = cuda_time_ms(lambda: raster_dense.prep_pack(
-            *raster_dense.tri_cols(win, w, attrs, ring, None), r, A))
-        bound, bound_by = k2_bound_ms(tables, r)
-        log(f"[{tag}] kernel {ms:.4f} ms device, {host:.4f} host (bound {bound:.4f} ms by {bound_by}), plain+finish "
-            f"{plain_ms:.4f} ms, table prep (torch) {prep_ms:.4f} ms")
-        b1 = win.shape[0] == 1
-        out.append({
-            "name": "dense_raster_b1" if b1 else "dense_raster_skirt", "route": "cuda",
-            "source": "ivid_tpu_torch/csrc/dense_raster.cu",
-            "replaces": "ivid_tpu/ops/raster_dense.py:458" if b1
-            else "ivid_tpu/ops/raster_dense.py:467",
-            "max_abs_err": attr_err, "ms": ms, "host_ms": host, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-            "mismatch_frac": mismatch, "prep_ms": prep_ms, "buffers": win.shape[0],
-        })
-    return out
+    return [k2_phase(f"K2 skirt B={B}", name, replaces, br.ring_input(f, r, slice(0, B)))
+            for B, name, replaces in ((8, "dense_raster_skirt", "ivid_tpu/ops/raster_dense.py:467"),
+                                      (1, "dense_raster_b1", "ivid_tpu/ops/raster_dense.py:458"))]
 
 
 def compare_tiles(got, want, tag):
@@ -778,44 +683,12 @@ def phase_unet():
     torch.backends.cudnn.allow_tf32 = True
 
 
-class HostNoise:
-    """Noise source drawing on the CPU from one seeded generator and moving
-    the draws to ``device``, so a chain on the card and one on the CPU see
-    the same noise."""
-
-    def __init__(self, seed, device):
-        import torch
-
-        self.gen = torch.Generator().manual_seed(seed)
-        self.device = device
-
-    def split(self, num=2):
-        return (self,) * num
-
-    def fold_in(self, i):
-        return self
-
-    def normal(self, shape):
-        import torch
-
-        return torch.randn(tuple(shape), generator=self.gen).to(self.device)
-
-    def uniform(self, shape):
-        import torch
-
-        return torch.rand(tuple(shape), generator=self.gen).to(self.device)
-
-    def randint(self, shape, low, high):
-        import torch
-
-        return torch.randint(low, high, tuple(shape), generator=self.gen).to(self.device)
-
-
 def reset_counts():
     from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled, resolve_variants
 
     attention.launches = attention.bwd_launches = 0
-    raster_dense.launches = raster_tiled.launches = 0
+    raster_dense.launches = raster_dense.bin_launches = raster_tiled.launches = 0
+    raster_dense.sync_s = 0.0
     resolve_variants.binned_launches = resolve_variants.tile_launches = 0
 
 
@@ -823,7 +696,7 @@ def read_counts():
     from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled, resolve_variants
 
     return {"K1": attention.launches, "K2": raster_dense.launches,
-            "K3": raster_tiled.launches, "K4": attention.bwd_launches,
+            "K2 bins": raster_dense.bin_launches, "K3": raster_tiled.launches, "K4": attention.bwd_launches,
             "K5": resolve_variants.binned_launches, "K6": resolve_variants.tile_launches}
 
 
@@ -834,6 +707,7 @@ def phase_chain(device="cuda"):
     import numpy as np
     import torch
 
+    from ivid_tpu_torch.host_noise import HostNoise
     from ivid_tpu_torch.diffusion.frameworks import build_framework
     from ivid_tpu_torch.inference.pipeline import ScenePipeline
     from ivid_tpu_torch.inference.viewsets import build_viewset, canonical_view
@@ -927,10 +801,12 @@ def phase_pipeline():
         f"mesh {st['mesh']:.1f} ms")
     log(f"[pipeline] samples {samples.shape} finite {bool(np.isfinite(samples).all())} "
         f"std {samples.std():.3f}; files: {len(scenes)} scene npz, {len(images)} result png; "
-        f"launches: K1 {k1} (>= {5 * 1050}), K2 {k2} (>= 1)")
+        f"launches: K1 {k1} (>= {5 * 1050}), K2 {k2} (>= 1, each with its bins: "
+        f"{counts['K2 bins']}); host ms waiting for the bins' length "
+        f"{raster_dense.sync_s * 1e3:.4f} in all")
     if not (np.isfinite(samples).all() and samples.shape == (2, 2, 128, 128, 4)
             and len(scenes) == 2 and len(images) == 2 and k1 >= 5 * 1050 and k2 >= 1
-            and counts["K3"] == counts["K4"] == counts["K5"] == counts["K6"] == 0):
+            and counts["K2 bins"] == k2 and counts["K3"] == counts["K4"] == counts["K5"] == counts["K6"] == 0):
         raise RuntimeError("pipeline run failed its checks")
     return counts
 
@@ -941,6 +817,7 @@ def train_chain_run(device):
     seeded weights and host-drawn noise. Returns the losses and parameters."""
     import torch
 
+    from ivid_tpu_torch.host_noise import HostNoise
     from ivid_tpu_torch.config import Config
     from ivid_tpu_torch.data import SyntheticRGBDWarp
     from ivid_tpu_torch.diffusion.frameworks import build_framework
@@ -987,7 +864,8 @@ def phase_train_chain():
         f"{param_rel:.3e} (<= {TRAIN_PARAM_REL})")
     if not (loss_rel <= TRAIN_LOSS_REL and param_rel <= TRAIN_PARAM_REL
             and np.isfinite(got_loss).all()
-            and counts == {"K1": 9, "K2": 3, "K3": 6, "K4": 9, "K5": 0, "K6": 0}):
+            and counts == {"K1": 9, "K2": 3, "K2 bins": 3, "K3": 6, "K4": 9, "K5": 0,
+                           "K6": 0}):
         raise RuntimeError("the training chain on the card disagrees with the CPU plain path")
     torch.backends.cudnn.allow_tf32 = True
 
@@ -999,6 +877,7 @@ def phase_train():
     import torch
 
     from ivid_tpu_torch import train
+    from ivid_tpu_torch.ops import raster_dense
     from ivid_tpu_torch.training import checkpoint as ckpt_io
     from ivid_tpu_torch.training.trainer import StepRecord
 
@@ -1022,6 +901,7 @@ def phase_train():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    sync_ms = raster_dense.sync_s * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in rec.losses]
     times = rec.stage_ms()
@@ -1044,13 +924,14 @@ def phase_train():
         f"SyntheticRGBDWarp 128², batch 8, {steps} AdamW steps: wall {wall:.2f} s; losses "
         f"{np.round(losses, 5).tolist()}; ms per step (CUDA events) {step_ms}, of which data "
         f"and warp conditioning {warp_ms}; peak memory {peak:.2f} GiB")
-    log(f"[train] launches {counts}, per step {per_step} (K1 5, K4 5, K3 2, K2 >= 1); "
+    log(f"[train] launches {counts}, per step {per_step} (K1 5, K4 5, K3 2, K2 >= 1 and its "
+        f"bins as often); host ms per step waiting for the bins' length {sync_ms / steps:.4f}; "
         f"{changed} of {len(now)} tensors changed since step 3 (not: {unchanged}); finite {finite}; "
         f"reloaded step {again_step} equal {reloaded}")
     if not (np.isfinite(losses).all() and len(losses) == steps and finite and changed > 0
             and reloaded and counts["K1"] == 5 * steps and counts["K4"] == 5 * steps
             and counts["K3"] == 2 * steps and counts["K2"] >= steps
-            and counts["K5"] == counts["K6"] == 0):
+            and counts["K2 bins"] == counts["K2"] and counts["K5"] == counts["K6"] == 0):
         raise RuntimeError("training run failed its checks")
     return counts, tr
 
@@ -1063,9 +944,11 @@ def phase_train_profile(tr, timed=10, profiled=2):
     import torch
 
     from ivid_tpu_torch import timing
+    from ivid_tpu_torch.ops import raster_dense
     from ivid_tpu_torch.training.trainer import StepRecord
 
     tr.record = StepRecord(timing=True)
+    raster_dense.sync_s = 0.0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(timed):
@@ -1076,7 +959,8 @@ def phase_train_profile(tr, timed=10, profiled=2):
     mean = {k: sum(m[k] for m in stages) / timed for k in stages[0]}
     tr.record = None
     log(f"[train-profile] trainer step, batch 8, mean of {timed} steps (CUDA events, ms): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in mean.items()) + f"; host wall {wall_ms:.2f}")
+        + ", ".join(f"{k} {v:.2f}" for k, v in mean.items()) + f"; host wall {wall_ms:.2f}, "
+        f"of which waiting for K2's bins' length {raster_dense.sync_s * 1e3 / timed:.4f}")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     # torch.profiler has come back without any device activity on the H100
     # machine; the steps are profiled once more before the breakdown is

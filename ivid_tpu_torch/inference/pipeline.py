@@ -103,7 +103,9 @@ class ScenePipeline:
         self.ssaa = ssaa
         # Aggregate only the K angularly nearest prior views (None: all).
         self.max_agg_views = max_agg_views
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        # Like every other entry point of the port, the card unless the caller
+        # names a device.
+        self.device = torch.device(device) if device is not None else torch.device("cuda")
         self._clock = _StageClock(self.device)
 
     def stage_ms(self) -> dict:

@@ -34,6 +34,12 @@ SPIN_HZ = 2.0e9
 fallbacks = 0
 
 
+class NotQueued(RuntimeError):
+    """:func:`queued_ms` could not queue the calls behind its spin kernel:
+    they wait for the device, or launch more kernels than the stream's
+    queue holds."""
+
+
 def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Milliseconds per call between CUDA events around ``reps`` calls."""
     for _ in range(warmup):
@@ -56,7 +62,8 @@ def queued_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     kernels), not the host's issue time. The spin lasts twice the run's
     events time plus 2 ms; if the start event has passed before the last call
     is queued, the spin is made 4x longer and the run taken again (twice at
-    most), else this raises. ``fn`` must not wait for the device."""
+    most), else this raises :class:`NotQueued`. ``fn`` must not wait for the
+    device."""
     spin_s = 2e-3 + 2 * reps * host_ms(fn, reps, warmup) * 1e-3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -72,7 +79,7 @@ def queued_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         if queued:
             return start.elapsed_time(end) / reps
         spin_s *= 4
-    raise RuntimeError("the calls could not be queued within the spin kernel")
+    raise NotQueued("the calls could not be queued within the spin kernel")
 
 
 def _device_events(prof):
@@ -97,7 +104,8 @@ def device_rows(prof, calls: int):
     return rows
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3, match: str | None = None) -> float:
+def device_ms(fn, reps: int = 20, warmup: int = 3, match: str | None = None,
+              sessions: int = 2) -> float:
     """Device milliseconds per call: the summed durations of everything the
     ``reps`` calls ran on the device (only the activities whose name holds
     ``match``, if given), over ``reps``.
@@ -105,14 +113,15 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, match: str | None = None) -> 
     A session counts only if it recorded some activity and each activity a
     whole number of times per call; the profiler has come back without the
     calls' activity on the H100 machine, in runs whose other sessions
-    recorded theirs. After two sessions that do not count, the reading is
+    recorded theirs, and with some of a call's launches missing. After
+    ``sessions`` sessions that do not count, the reading is
     :func:`queued_ms`'s (which times everything ``fn`` runs, whatever
     ``match``) and :data:`fallbacks` grows by one."""
     global fallbacks
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(sessions):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()

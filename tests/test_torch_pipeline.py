@@ -78,7 +78,7 @@ def _run_both(views, batch, steps_cond, max_agg_views=None):
     fwu = torch_framework("GaussianDiffusion", pu, FW_U)
     jpipe = JaxPipeline(jax_framework("GaussianDiffusion", ju, FW_U),
                         jax_framework("InpaintCFG", jc, FW_C), max_views=4, **kw)
-    tpipe = ScenePipeline(fwu, torch_framework("InpaintCFG", pc, FW_C), **kw)
+    tpipe = ScenePipeline(fwu, torch_framework("InpaintCFG", pc, FW_C), device="cpu", **kw)
     noise = np.repeat(smooth_first_view_noise(fwu.schedule.alphas_cumprod[-1].item()),
                       batch, axis=0)
     key = jax.random.PRNGKey(3)
@@ -132,7 +132,7 @@ def test_scene_npz_layout_matches_jax(tmp_path):
     PNG payloads that decode to the same pixels."""
     pu = adm.build_adm_unet(BACKBONE)
     pipe = ScenePipeline(torch_framework("GaussianDiffusion", pu, FW_U), image_size=16,
-                         steps_uncond=2)
+                         steps_uncond=2, device="cpu")
     rgbd01 = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, 16, 16, 4))
                               .astype(np.float32))
     mesh = pipe._make_meshes(rgbd01, torch.eye(4)[None])
@@ -184,6 +184,15 @@ def test_sample_cli_writes_every_record(tmp_path):
     assert imageio.imread(io.BytesIO(data[1]["color"])).shape == (16, 16, 3)
 
 
+def test_pipeline_defaults_to_the_card():
+    """Built without a device, the sampling pipeline runs on ``cuda``, as the
+    CLIs and the trainers do; building it touches no card."""
+    pu = adm.build_adm_unet(BACKBONE)
+    pipe = ScenePipeline(torch_framework("GaussianDiffusion", pu, FW_U), image_size=16)
+    assert pipe.device == torch.device("cuda")
+    assert ScenePipeline(pipe.fw_uncond, image_size=16, device="cpu").device.type == "cpu"
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -196,6 +205,7 @@ def test_port_imports_no_jax():
         "assert 'ivid_tpu_torch.sample' in sys.modules\n"
         "assert 'ivid_tpu_torch.bench_resolve' in sys.modules\n"
         "assert 'ivid_tpu_torch.bench_micro' in sys.modules\n"
+        "assert 'ivid_tpu_torch.bench_raster' in sys.modules\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -81,7 +81,7 @@ def _inputs(case):
     (win, w, attrs, pos), g, r = scene(c["s"], c["n"], c["spread"], c["seed"], c["with_normals"])
     A = attrs.shape[-1]
     t = [torch.from_numpy(np.array(x)) for x in (win, w, attrs, pos)]
-    tt = trd.prep_pack(*trd.grid_cols(*t, g, c["discard"]), r, A)
+    tt = trd.prep_pack(trd.grid_cols(*t, g, c["discard"]), r, A)
     return (win, w, attrs, pos), t, g, r, A, tt
 
 
@@ -134,6 +134,9 @@ def test_plain_raster_matches_pallas_interpret_and_xla(case, monkeypatch):
 
 
 def test_non_cuda_accelerator_raises():
-    *_, r, A, tt = _inputs("uv-edge-nodiscard")
+    _, t, g, r, A, _ = _inputs("uv-edge-nodiscard")
+    cols = trd.grid_cols(*[x.to("meta") for x in t], g, None)
     with pytest.raises(ValueError):
-        trd.raster_rows([x.to("meta") for x in tt], r, A)
+        trd.raster(cols, r, A)
+    with pytest.raises(ValueError):
+        trd.bin_tiles(cols, r)

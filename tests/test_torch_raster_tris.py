@@ -73,12 +73,12 @@ def test_ring_split_matches_jax():
 def test_tri_tables_equal_jax():
     samples, r = _rings()
     A = 3
-    batched = trd.prep_pack(*trd.tri_cols(
+    batched = trd.prep_pack(trd.tri_cols(
         *[torch.stack(x) for x in zip(*[_t(*smp) for smp in samples])], None), r, A)
     for b, (win, w, attrs, tris) in enumerate(samples):
         want = jrd._pallas_prep(jrd._tri_planes(win, w, attrs, tris, None), r, A)
         tw, tww, ta, tt = _t(win, w, attrs, tris)
-        got = trd.prep_pack(*trd.tri_cols(tw[None], tww[None], ta[None], tt, None), r, A)
+        got = trd.prep_pack(trd.tri_cols(tw[None], tww[None], ta[None], tt, None), r, A)
         for name, g, gb, x in zip(["lohi", "spans", "glob", "geom", "pay"], got, batched, want):
             x = np.asarray(x)
             assert g.shape[1:] == x.shape and str(g.numpy().dtype) == str(x.dtype), name

@@ -2,7 +2,8 @@
 with torch.profiler and CUDA events replaced by fakes: the per-call sums, the
 name filter, one more session when a session records no device activity or
 not a whole number of launches per call, the fallback to calls queued behind
-a spin kernel, and that fallback's own check of the queueing."""
+a spin kernel (after as many sessions as asked), and that fallback's own
+check of the queueing."""
 
 import pytest
 import torch
@@ -69,6 +70,14 @@ def test_device_ms_takes_one_more_session_when_launches_are_not_whole_per_call(m
     assert len(taken) == 2
 
 
+def test_device_ms_takes_as_many_sessions_as_asked(monkeypatch):
+    bad = [_Event("k", 30.0, 3)]
+    taken = _fake_profiler(monkeypatch, [bad] * 5 + [[_Event("k", 40.0, 4)]])
+    with pytest.warns(UserWarning, match="k x3"):
+        assert timing.device_ms(lambda: None, reps=2, sessions=6) == pytest.approx(0.02)
+    assert len(taken) == 6
+
+
 def _fake_events(monkeypatch, started):
     """CUDA events whose start has passed (``query``) as ``started`` says, one
     value per run, and which read 8 ms between start and end; the spin
@@ -108,6 +117,6 @@ def test_queued_ms_times_the_calls_queued_behind_the_spin(monkeypatch):
 
 def test_queued_ms_raises_when_the_spin_never_covers_the_calls(monkeypatch):
     spins = _fake_events(monkeypatch, [True, True, True])
-    with pytest.raises(RuntimeError, match="could not be queued"):
+    with pytest.raises(timing.NotQueued, match="could not be queued"):
         timing.queued_ms(lambda: None, reps=10)
     assert len(spins) == 3 and spins[2] == pytest.approx(16 * spins[0], rel=1e-6)
