@@ -36,8 +36,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. K4 (packed attention backward) against autograd of the plain version
    and against its plain formula form at the training shape [8, 1024, 768],
    4 heads, and at the SR shapes, bf16 and f32;
+6b. K1 f32 and K4 f32 (split-TF32 tensor-core products) at every shape the
+   paths give them: the sampling, training and SR shapes, the flagship
+   1000-class model's [20, 1024, 1536] and [16, 1024, 1536] (8 heads), a
+   ragged T=1000 and inputs scaled x8 (against the plain version in f64);
+   two launches bit-equal; timed at the flagship shapes beside the plain
+   version and SDPA in f32 (with SDPA's own error);
 7. the full-width single-category UNet (random seeded weights, batch 2) on
    the card with K1 in f32 against the same weights on the CPU plain path;
+   then the flagship 1000-class f32 UNet the same way (batch 2 with
+   classes, K1 f32 at its five sites);
 8. a small 3-view sampling chain (32² f32 UNets, K1 and K2 on its path) on
    the card against the same weights and noise on the CPU plain path;
 9. a small training chain (32² f32 cond UNet, InpaintTrainer, batch 2, 3
@@ -51,9 +59,18 @@ Phases, each printing its own lines; any failure exits non-zero:
     steps with a checkpoint at step 3 and a reload;
 12. the same trainer's step (``run_step``) timed by stage with CUDA events
     over 10 more steps, then 2 steps under torch.profiler: kernels, device
-    kernel time and idle share per step, and the top kernels.
+    kernel time and idle share per step, and the top kernels;
+13. the flagship pair through ``sample.main`` (random viewset, batch 2, the
+    uncond sampler cut to 50 strided DDIM steps, cond DDIM 50), with the
+    launch counts and the stage ms;
+14. the flagship uncond config through ``train.main`` (BasicTrainer, CFG,
+    f32, batch 16, SyntheticRGBD with 1000 classes, 3 AdamW steps), with
+    the peak memory;
+15. the model-level A/B (``ivid_tpu_torch.bench_unet``): the flagship
+    uncond step at batch 10 and its training step at 16, with the attention
+    sites on K1/K4 f32, the plain version and SDPA, in turns.
 
-Each main path (the benches of 5, and 10, 11) runs with every launch
+Each main path (the benches of 5, and 10, 11, 13, 14, 15) runs with every launch
 counter set to 0 just before it and read just after. Then one JSON line
 with every kernel's numbers, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -79,6 +96,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 UNCOND_CFG = os.path.join(ROOT, "configs", "rgbd_singlecategory_adm_128_small.json")
 COND_CFG = os.path.join(ROOT, "configs", "rgbd_singlecategory_adm_128_small_cond.json")
+FLAGSHIP_UNCOND = os.path.join(ROOT, "configs", "rgbd_imagenet_adm_128_large_cfg.json")
+FLAGSHIP_COND = os.path.join(ROOT, "configs", "rgbd_imagenet_adm_128_large_cond.json")
 
 # Tolerances (and why):
 # K1 bf16 vs the plain version in f32 on the same bf16 inputs: the kernel
@@ -99,6 +118,10 @@ CHAIN_REL, CHAIN_MASK_FRAC = 1e-3, 1e-2
 # K1's log-sum-exp vs torch.logsumexp of the f32 logits: summation order
 # (f32), and bf16 inputs rounded the same on both sides (bf16 path).
 K1_LSE_MAX = 1e-4
+# K1 f32 / K4 f32 on inputs scaled x8 (logits up to ~200): the plain version
+# in f32 is itself ~1e-3 from exact on outputs up to ~40, so the kernels are
+# held to the plain version in f64, within this share of the largest output.
+F32_X8_REL = 1e-4
 # K3 vs its plain version on the card: depth and coverage are one minimum,
 # equal on every pixel; the payload is a tie average whose sum order differs
 # (the scatter adds with atomics).
@@ -117,10 +140,9 @@ K56_SUM_MAX = 1e-5
 # ~0, which moves the parameters by < 1e-5 relative L2.
 TRAIN_LOSS_REL, TRAIN_PARAM_REL = 1e-3, 1e-5
 
-# The card's published peaks (NVIDIA H100 SXM data sheet) for the bounds.
+# The card's memory rate (NVIDIA H100 SXM data sheet) for the bytes bounds;
+# the attention bounds take their peaks from ivid_tpu_torch.bench_attention.
 PEAK_BYTES = 3.35e12
-PEAK_BF16 = 989e12
-PEAK_F32 = 67e12
 
 
 KERNELS = ("packed_attention", "packed_attention_bwd", "dense_raster", "zbuffer_resolve",
@@ -176,24 +198,6 @@ def phase_device():
     return smi
 
 
-def attention_bound_ms(b, t, heads, dtype, backward=False):
-    """Least time for packed attention at [b, t, 3·heads·64]: the products'
-    flops (forward 4·B·H·T²·D, backward 10·B·H·T²·D) at the type's peak, or
-    the operand bytes (qkv, out; backward also dout, lse and dqkv) at the
-    memory rate, whichever is larger."""
-    import torch
-
-    d = 64
-    size = 2 if dtype == torch.bfloat16 else 4
-    flops = (10 if backward else 4) * b * heads * t * t * d
-    nbytes = (b * t * 3 * heads * d + b * t * heads * d) * size
-    if backward:
-        nbytes += (b * t * heads * d + b * t * 3 * heads * d) * size + b * heads * t * 4
-    t_ops = flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
-    t_bytes = nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-
-
 def phase_attention(b, seed, training, t=1024, heads=4, time_f32=True):
     """K1 at [b, t, 3·heads·64]: b=2 at T=1024 with 4 heads is the sampling
     shape; b=8 with ``training`` the training forward's, which also writes
@@ -204,6 +208,7 @@ def phase_attention(b, seed, training, t=1024, heads=4, time_f32=True):
     import torch.nn.functional as F
 
     from ivid_tpu_torch import timing
+    from ivid_tpu_torch.bench_attention import bound_ms
     from ivid_tpu_torch.ops import attention
 
     dev = torch.device("cuda")
@@ -244,8 +249,8 @@ def phase_attention(b, seed, training, t=1024, heads=4, time_f32=True):
     # The other device-time reading (the profiler's fallback), as a cross-check.
     queued = timing.queued_ms(lambda: attention.packed_attention(qkv16, heads, scale))
     sdpa_queued = timing.queued_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-    bound, bound_by = attention_bound_ms(b, t, heads, torch.bfloat16)
-    bound32, _ = attention_bound_ms(b, t, heads, torch.float32)
+    bound, bound_by = bound_ms(b, t, heads, torch.bfloat16)
+    bound32, _ = bound_ms(b, t, heads, torch.float32)
     entry = {
         "name": "packed_attention_train" if training else "packed_attention", "route": "cuda",
         "source": "ivid_tpu_torch/csrc/packed_attention.cu",
@@ -259,11 +264,20 @@ def phase_attention(b, seed, training, t=1024, heads=4, time_f32=True):
     }
     f32 = ""
     if time_f32:
+        from ivid_tpu_torch.bench_attention import sdpa_forward
+
         ms32, host32 = timed(lambda: attention.packed_attention(qkv32, heads, scale))
         plain32_ms = cuda_time_ms(lambda: attention.reference_attention(qkv32, heads, scale))
-        entry.update(f32_ms=ms32, f32_host_ms=host32, f32_plain_ms=plain32_ms)
+        q32, k32, v32 = (x.transpose(1, 2).contiguous()
+                         for x in qkv32.reshape(b, t, heads, 3 * d).split(d, dim=-1))
+        sdpa32_ms, _ = timed(lambda: F.scaled_dot_product_attention(q32, k32, v32))
+        sdpa32_err = (sdpa_forward(qkv32, heads, scale)
+                      - attention.reference_attention(qkv32, heads, scale)).abs().max().item()
+        entry.update(f32_ms=ms32, f32_host_ms=host32, f32_plain_ms=plain32_ms,
+                     f32_library_ms=sdpa32_ms, f32_library_max_abs_err=sdpa32_err)
         f32 = (f"; f32: kernel {ms32:.4f} ms (host {host32:.4f}, bound {bound32:.4f} ms), "
-               f"plain {plain32_ms:.4f} ms")
+               f"plain {plain32_ms:.4f} ms, SDPA f32 {sdpa32_ms:.4f} ms device (max|err| against "
+               f"the plain version {sdpa32_err:.3e})")
     log(f"{tag} bf16: kernel {ms:.4f} ms device, {host:.4f} host (with log-sum-exp "
         f"{lse_ms:.4f} / {lse_host:.4f}; bound {bound:.4f} ms by {bound_by}), plain "
         f"{plain_ms:.4f} ms, SDPA (unpacked, timing only) {sdpa_ms:.4f} device, "
@@ -312,6 +326,23 @@ def k2_phase(tag, name, replaces, inp):
     }
 
 
+def k2_capacity_check(inp):
+    """K2's bins given one id less room than they need: the caller's check
+    of the returned offsets (``raster_dense.check_capacity``) must raise."""
+    from ivid_tpu_torch.ops import raster_dense as rd
+
+    cols = inp.cols()
+    listed = rd.bin_tiles(cols, inp.r)[3].numel()
+    offsets = rd.bin_tiles(cols, inp.r, listed - 1)[2]
+    try:
+        rd.check_capacity(offsets, listed - 1)
+    except RuntimeError as e:
+        log(f"[K2 capacity] bins of {listed} ids given room for {listed - 1}: the check raised "
+            f"({e})")
+        return
+    raise RuntimeError("K2's bins lost an id and the capacity check did not raise")
+
+
 def phase_raster():
     """K2 on the aggregation's live slots, 4 and 26 at r=384."""
     import torch
@@ -328,6 +359,7 @@ def phase_raster():
             f"pixels {st['tied_pixels']}, most winners {st['most_winners']}")
     entries = [k2_phase(f"K2 {n} slots", "dense_raster", "ivid_tpu/ops/raster_dense.py:467",
                         br.slot_input(dev, n)) for n in (4, 26)]
+    k2_capacity_check(br.slot_input(dev, 4))
     entries[0]["slots"], entries[1]["slots"] = 4, 26
     entries[0]["other_shapes"] = entries[1:]
     return entries[0]
@@ -565,6 +597,7 @@ def phase_attention_backward(b=8, t=1024, heads=4, seed=3, time_f32=True):
     import torch
     import torch.nn.functional as F
 
+    from ivid_tpu_torch.bench_attention import bound_ms
     from ivid_tpu_torch.ops import attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -614,7 +647,7 @@ def phase_attention_backward(b=8, t=1024, heads=4, seed=3, time_f32=True):
             r["sdpa"], r["sdpa_host"] = timed(
                 lambda: torch.autograd.grad(sdpa_out, (q, k, v), g4, retain_graph=True))
             del sdpa_out
-        r["bound"], r["bound_by"] = attention_bound_ms(b, t, heads, dtype, backward=True)
+        r["bound"], r["bound_by"] = bound_ms(b, t, heads, dtype, backward=True)
         res[dtype] = r
     r16, r32 = res[torch.bfloat16], res[torch.float32]
     log(f"{tag}: bf16 rel L2 {r16['rel']:.3e} (<= {K4_BF16_REL}), max|err| {r16['max']:.3e}; "
@@ -648,6 +681,285 @@ def phase_attention_backward(b=8, t=1024, heads=4, seed=3, time_f32=True):
         entry.update(f32_ms=r32["ms"], f32_host_ms=r32["host"], f32_plain_ms=r32["plain"],
                      f32_library_ms=r32["sdpa"])
     return entry
+
+
+# The cases K1 f32 and K4 f32 are checked at beyond bench_attention.SHAPES
+# (the sampling, training and flagship shapes): the SR shapes, a ragged T
+# and inputs scaled x8. (tag, batch, T, heads, input scale).
+F32_EXTRA_CASES = (
+    ("SR T=4096", 2, 4096, 4, 1.0), ("SR 6 heads", 2, 1024, 6, 1.0),
+    ("ragged T=1000", 2, 1000, 4, 1.0), ("inputs x8", 2, 1024, 4, 8.0),
+)
+
+
+def f32_cases():
+    """K1 f32 and K4 f32 (split-TF32 products) on every shape the paths give
+    them, at unit inputs, then F32_EXTRA_CASES."""
+    from ivid_tpu_torch.bench_attention import SHAPES
+
+    return tuple((tag, b, t, h, 1.0) for tag, (b, t, h) in SHAPES.items()) + F32_EXTRA_CASES
+
+
+def f32_case(tag, b, t, heads, mult, seed):
+    """K1 f32 (with the log-sum-exp) and K4 f32 at one case against their
+    plain versions, and each launched twice for bit-equality. Unit inputs:
+    max|err| against the plain version in f32 (TF32 off) within K1_F32_MAX,
+    K1_LSE_MAX and K4_F32_MAX (K4 also against its formula form). Inputs x8:
+    the logits reach ~200 and the plain version in f32 is itself ~1e-3 from
+    exact, so the kernels are held to the plain version in f64 within
+    F32_X8_REL of the largest output. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    c = heads * 64
+    scale = 64 ** -0.25
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy((rng.standard_normal((b, t, 3 * c)) * mult).astype(np.float32)).to(dev)
+    dout = torch.from_numpy(rng.standard_normal((b, t, c)).astype(np.float32)).to(dev)
+    out, lse = attention._launch(qkv, heads, scale, with_lse=True)
+    out2, lse2 = attention._launch(qkv, heads, scale, with_lse=True)
+    dqkv = attention._launch_bwd(qkv, out, dout, lse, heads, scale)
+    dqkv2 = attention._launch_bwd(qkv, out, dout, lse, heads, scale)
+    bit_equal = bool(torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(dqkv, dqkv2))
+    ref_dtype = torch.float64 if mult != 1.0 else torch.float32
+    x = qkv.to(ref_dtype).requires_grad_()
+    want = attention.reference_attention(x, heads, scale)
+    (dwant,) = torch.autograd.grad(want, x, dout.to(ref_dtype))
+    want_lse = attention.logsumexp_reference(qkv.to(ref_dtype), heads, scale)
+    r = {"out": (out.to(ref_dtype) - want).abs().max().item(),
+         "lse": (lse.to(ref_dtype) - want_lse).abs().max().item(),
+         "dqkv": (dqkv.to(ref_dtype) - dwant).abs().max().item(), "bit_equal": bit_equal}
+    if mult == 1.0:
+        form = attention.attention_backward_reference(qkv, out, dout, lse, heads, scale)
+        r["dqkv_formula"] = (dqkv - form).abs().max().item()
+        ok = (r["out"] <= K1_F32_MAX and r["lse"] <= K1_LSE_MAX and r["dqkv"] <= K4_F32_MAX
+              and r["dqkv_formula"] <= K4_F32_MAX)
+        limits = f"<= {K1_F32_MAX}, {K1_LSE_MAX}, {K4_F32_MAX}"
+    else:
+        tops = {"out": want.abs().max().item(), "lse": want_lse.abs().max().item(),
+                "dqkv": dwant.abs().max().item()}
+        r.update({f"{k}_max_abs": v for k, v in tops.items()})
+        ok = all(r[k] <= F32_X8_REL * tops[k] for k in tops)
+        limits = (f"<= {F32_X8_REL} of the largest: {F32_X8_REL * tops['out']:.3e}, "
+                  f"{F32_X8_REL * tops['lse']:.3e}, {F32_X8_REL * tops['dqkv']:.3e}; against f64")
+    torch.cuda.synchronize()
+    extra = f", K4 against its formula form {r['dqkv_formula']:.3e}" if "dqkv_formula" in r else ""
+    log(f"[K1/K4 f32] {tag} [{b},{t},{3 * c}] {heads} heads: max|err| out {r['out']:.3e}, "
+        f"log-sum-exp {r['lse']:.3e}, dqkv {r['dqkv']:.3e} ({limits}){extra}; two launches "
+        f"bit-equal {bit_equal}")
+    if not (ok and bit_equal):
+        raise RuntimeError(f"K1/K4 f32 disagree with their plain versions at {tag}")
+    return r
+
+
+def phase_f32_attention():
+    """K1 f32 and K4 f32 on :func:`f32_cases`, then timed at the flagship's shapes
+    beside the plain version and SDPA in f32 (TF32 off; SDPA's own max|err|
+    against the plain version printed beside its time). Returns the two
+    kernels-line entries: K1 f32 at the flagship sampling shape (with the
+    training shape's times under ``training``) and K4 f32 at the flagship
+    training shape."""
+    import torch
+
+    from ivid_tpu_torch import bench_attention as ba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    checks = {tag: f32_case(tag, b, t, h, mult, seed)
+              for seed, (tag, b, t, h, mult) in enumerate(f32_cases())}
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    src = {"this": ba.cuda_build.CSRC}
+    rows = {}
+    for kernel, shape in (("K1", "flagship sampling"), ("K1", "flagship training"),
+                          ("K4", "flagship training")):
+        r = ba.bench_one(kernel, torch.float32, shape, src, ["this"], gen)
+        rows[(kernel, shape)] = r
+        log(f"[K1/K4 f32] {kernel} {shape} {r['shape']} {r['heads']} heads"
+            f"{' with log-sum-exp' if r['with_lse'] else ''}: kernel {r['ms']['this'][0]:.4f} ms "
+            f"device, {r['host_ms']['this'][0]:.4f} host (bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms, SDPA f32 {r['library_ms']:.4f} ms "
+            f"device (max|err| against the plain version {r['library_max_abs_err']:.3e}; kernel's "
+            f"{r['max_abs_err']:.3e}; SDPA ran {r['library_kernels'][:2]})")
+        torch.cuda.empty_cache()
+
+    def entry(r, name, source, replaces):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"]["this"][0],
+            "host_ms": r["host_ms"]["this"][0], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_max_abs_err": r["library_max_abs_err"],
+            "library_kernels": r["library_kernels"], "shape": r["shape"], "heads": r["heads"],
+        }
+
+    k1 = entry(rows[("K1", "flagship sampling")], "packed_attention_f32",
+               "ivid_tpu_torch/csrc/packed_attention.cu", "ivid_tpu/ops/attention.py:167")
+    k1["training"] = entry(rows[("K1", "flagship training")], "packed_attention_f32",
+                           "ivid_tpu_torch/csrc/packed_attention.cu",
+                           "ivid_tpu/ops/attention.py:167")
+    k4 = entry(rows[("K4", "flagship training")], "packed_attention_bwd_f32",
+               "ivid_tpu_torch/csrc/packed_attention_bwd.cu", "ivid_tpu/ops/attention.py:312")
+    k1["checks"] = k4["checks"] = checks
+    return k1, k4
+
+
+def phase_flagship_unet():
+    """The flagship 1000-class f32 UNet at full width (seeded random
+    weights), batch 2 with classes, on the card (K1 f32 at its five T=1024
+    sites) against the same weights on the CPU plain path, TF32 off."""
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch.config import Config, build_backbone
+    from ivid_tpu_torch.models.adm import randomize_parameters
+    from ivid_tpu_torch.ops import attention
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.load(FLAGSHIP_UNCOND)
+    cpu_model = randomize_parameters(build_backbone(cfg), seed=0).eval()
+    gpu_model = build_backbone(cfg)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.to("cuda").eval()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 128, 128, 4)).astype(np.float32))
+    t = torch.tensor([999, 10])
+    classes = torch.tensor([7, 999])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu_model(x, t, classes)
+        cpu_s = time.perf_counter() - t0
+        before = attention.launches, attention.f32_launches
+        got = gpu_model(x.cuda(), t.cuda(), classes.cuda()).cpu()
+    sites, sites32 = attention.launches - before[0], attention.f32_launches - before[1]
+    rel = ((got - want).norm() / want.norm()).item()
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    log(f"[flagship unet] {os.path.basename(FLAGSHIP_UNCOND)} ({n_params} parameters), f32, "
+        f"batch 2, classes {classes.tolist()}: card (K1 f32 at {sites32} of {sites} attention "
+        f"launches) vs CPU plain path ({cpu_s:.1f} s): rel L2 {rel:.3e} (<= {UNET_REL}), output "
+        f"std {want.std().item():.3f}, finite {bool(torch.isfinite(got).all())}")
+    if not (rel <= UNET_REL and torch.isfinite(got).all() and sites == sites32 == 5):
+        raise RuntimeError("the flagship UNet on the card disagrees with the CPU plain path")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_flagship_pipeline(steps_uncond=50):
+    """``sample.main`` with the flagship pair (uncond f32, cond bf16 torso),
+    random viewset, batch 2; the uncond sampler cut from 1000 DDPM steps to
+    ``steps_uncond`` strided DDIM steps to fit the time limit."""
+    import numpy as np
+
+    from ivid_tpu_torch import sample
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_flagship_")
+    argv = [
+        "--config_uncond", FLAGSHIP_UNCOND, "--config_cond", FLAGSHIP_COND,
+        "--ckpt_uncond", "random", "--ckpt_cond", "random",
+        "--output_dir", out_dir, "--seeds", "0-1", "--viewset", "random",
+        "--batchsize", "2", "--steps_uncond", str(steps_uncond), "--steps_cond", "50",
+        "--device", "cuda",
+    ]
+    reset_counts()
+    t0 = time.perf_counter()
+    result = sample.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    samples = np.concatenate(result["samples"], axis=0)
+    images = sorted(os.listdir(os.path.join(result["output_dir"], "results")))
+    st = result["stage_ms"]
+    log(f"[flagship pipeline] sample.main, flagship pair, random viewset, batch 2, uncond DDIM "
+        f"{steps_uncond} strided steps (cut from DDPM 1000) + cond DDIM 50: wall {wall:.2f} s; "
+        f"stages (CUDA events) " + ", ".join(f"{k} {v:.1f} ms" for k, v in st.items()))
+    log(f"[flagship pipeline] samples {samples.shape} finite {bool(np.isfinite(samples).all())}; "
+        f"{len(images)} result png; launches {counts} (K1 f32 {5 * steps_uncond}: five sites "
+        f"per uncond step)")
+    if not (np.isfinite(samples).all() and samples.shape == (2, 2, 128, 128, 4)
+            and len(images) == 2 and counts["K1 f32"] == 5 * steps_uncond
+            and counts["K1"] > counts["K1 f32"] and counts["K2"] >= 1
+            and counts["K4"] == counts["K3"] == counts["K5"] == counts["K6"] == 0):
+        raise RuntimeError("the flagship pipeline run failed its checks")
+    return counts
+
+
+def phase_flagship_train(steps=3):
+    """``train.main`` with the flagship uncond config (BasicTrainer, CFG, f32,
+    batch 16 as the config says), its dataset section swapped to
+    SyntheticRGBD with 1000 classes (the ImageNet files are not in the
+    repository), ``steps`` AdamW steps; K1 f32 with the log-sum-exp and K4
+    f32 on the path, peak memory printed."""
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch import train
+    from ivid_tpu_torch.training.trainer import StepRecord
+
+    with open(FLAGSHIP_UNCOND) as f:
+        cfg = json.load(f)
+    args = cfg["dataset"]["args"]
+    cfg["dataset"] = {"name": "SyntheticRGBD", "args": {
+        "image_size": args["image_size"], "normalize": args["normalize"],
+        "normalize_depth": args["normalize_depth"], "prepocess_depth": args["prepocess_depth"],
+        "num_classes": 1000, "length": 256}}
+    cfg["trainer"]["args"].update(max_steps=steps, i_log=steps, i_save=10 ** 9,
+                                  i_sample=10 ** 9, sample_at_init=False)
+    batch, split = cfg["trainer"]["args"]["batch_size_per_gpu"], cfg["trainer"]["args"]["batch_split"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_flagship_train_")
+    path = os.path.join(tmp, os.path.basename(FLAGSHIP_UNCOND))
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    rec = StepRecord(timing=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = train.main(["--config", path, "--output_dir", os.path.join(tmp, "out"),
+                     "--device", "cuda"], record=rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in rec.losses]
+    step_ms = [round(m["step"], 3) for m in rec.stage_ms()]
+    finite = all(torch.isfinite(p).all() for p in tr.model.parameters())
+    log(f"[flagship train] train.main, {os.path.basename(FLAGSHIP_UNCOND)} (BasicTrainer, CFG, "
+        f"f32), SyntheticRGBD 128² with 1000 classes, batch {batch} (batch_split {split}), "
+        f"{steps} AdamW steps: wall {wall:.2f} s; losses {np.round(losses, 5).tolist()}; ms per "
+        f"step (CUDA events) {step_ms}; peak memory {peak:.2f} GiB; launches {counts} (K1 f32 and "
+        f"K4 f32 5 per step)")
+    if not (np.isfinite(losses).all() and len(losses) == steps and finite
+            and counts["K1 f32"] == counts["K1"] == 5 * steps
+            and counts["K4 f32"] == counts["K4"] == 5 * steps):
+        raise RuntimeError("the flagship training run failed its checks")
+    del tr
+    return counts, peak
+
+
+def phase_flagship_ab(reps=2):
+    """The model-level A/B: ``bench_unet.main`` (the flagship uncond step at
+    batch 10 and the BasicTrainer step at 16, each with the attention sites
+    on K1/K4 f32, the plain version and SDPA, in turns)."""
+    from ivid_tpu_torch import bench_unet
+
+    reset_counts()
+    lines = bench_unet.main(["--reps", str(reps)])
+    counts = read_counts()
+    for line in lines:
+        ms = {k: [round(x, 2) for x in v] for k, v in line["ms"].items()}
+        dev_ms = {k: round(v["device_ms"], 2) for k, v in line["profile"].items()}
+        log(f"[flagship A/B] {line['cell']} at batch {line['batch']}: ms per step (CUDA events) "
+            f"{ms}; device ms of one more step (torch.profiler) {dev_ms}; K1/K4 launches by "
+            f"version {line['launches']}")
+        for name, prof in line["profile"].items():
+            log(f"[flagship A/B]   {name}: {prof['kernels']} kernels; largest {prof['top'][:3]}")
+    uncond, train = lines
+    if not (uncond["launches"]["kernel"] == [5 * (reps + 1), 0]
+            and train["launches"]["kernel"] == [5 * (reps + 1)] * 2
+            and all(uncond["launches"][v] == train["launches"][v] == [0, 0]
+                    for v in ("plain", "sdpa"))
+            and counts["K1 f32"] == counts["K1"] and counts["K4 f32"] == counts["K4"]):
+        raise RuntimeError(f"the A/B's kernel turns missed a kernel: {counts}")
+    return lines
 
 
 def phase_unet():
@@ -687,6 +999,7 @@ def reset_counts():
     from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled, resolve_variants
 
     attention.launches = attention.bwd_launches = 0
+    attention.f32_launches = attention.bwd_f32_launches = 0
     raster_dense.launches = raster_dense.bin_launches = raster_tiled.launches = 0
     raster_dense.sync_s = 0.0
     resolve_variants.binned_launches = resolve_variants.tile_launches = 0
@@ -695,8 +1008,10 @@ def reset_counts():
 def read_counts():
     from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled, resolve_variants
 
-    return {"K1": attention.launches, "K2": raster_dense.launches,
-            "K2 bins": raster_dense.bin_launches, "K3": raster_tiled.launches, "K4": attention.bwd_launches,
+    return {"K1": attention.launches, "K1 f32": attention.f32_launches,
+            "K2": raster_dense.launches, "K2 bins": raster_dense.bin_launches,
+            "K3": raster_tiled.launches, "K4": attention.bwd_launches,
+            "K4 f32": attention.bwd_f32_launches,
             "K5": resolve_variants.binned_launches, "K6": resolve_variants.tile_launches}
 
 
@@ -864,8 +1179,8 @@ def phase_train_chain():
         f"{param_rel:.3e} (<= {TRAIN_PARAM_REL})")
     if not (loss_rel <= TRAIN_LOSS_REL and param_rel <= TRAIN_PARAM_REL
             and np.isfinite(got_loss).all()
-            and counts == {"K1": 9, "K2": 3, "K2 bins": 3, "K3": 6, "K4": 9, "K5": 0,
-                           "K6": 0}):
+            and counts == {"K1": 9, "K1 f32": 9, "K2": 3, "K2 bins": 3, "K3": 6, "K4": 9,
+                           "K4 f32": 9, "K5": 0, "K6": 0}):
         raise RuntimeError("the training chain on the card disagrees with the CPU plain path")
     torch.backends.cudnn.allow_tf32 = True
 
@@ -1017,13 +1332,18 @@ def main():
     k4 = phase_attention_backward()
     k4["other_shapes"] = [phase_attention_backward(2, 4096, 4, seed=7, time_f32=False),
                           phase_attention_backward(2, 1024, 6, seed=8, time_f32=False)]
+    k1_f32, k4_f32 = phase_f32_attention()
     phase_unet()
+    phase_flagship_unet()
     phase_chain()
     phase_train_chain()
     sampling = phase_pipeline()
     training, trainer = phase_train()
     phase_train_profile(trainer)
     del trainer
+    flagship_sampling = phase_flagship_pipeline()
+    flagship_training, _ = phase_flagship_train()
+    phase_flagship_ab()
     # ``launches``: the count of the path each kernel entry's shape stands
     # for (K1 at batch 2 and K2 on grids: sampling; the other entries:
     # training; K2 at B=1 is on neither path: the trainer warps the whole
@@ -1034,6 +1354,12 @@ def main():
         entry["launches"] = path[key]
         entry["launches_by_path"] = {"sampling": sampling[key], "training": training[key]}
     skirt1["launches"] = 0
+    # The f32 paths: the flagship model's sampling (K1 f32) and training (K4 f32).
+    for entry, key, path in ((k1_f32, "K1 f32", flagship_sampling),
+                             (k4_f32, "K4 f32", flagship_training)):
+        entry["launches"] = path[key]
+        entry["launches_by_path"] = {"flagship sampling": flagship_sampling[key],
+                                     "flagship training": flagship_training[key]}
     # K5 and K6: the count of the bench runs, their only path.
     for entry, key in ((k5, "K5"), (k6, "K6")):
         entry["launches"] = benches[key]
@@ -1043,7 +1369,8 @@ def main():
 
     log(f"[timing] device-time readings taken by queued CUDA events instead of "
         f"torch.profiler: {timing.fallbacks}")
-    log(json.dumps({"kernels": [k1, k1_train, k2, skirt8, skirt1, k3, k4, k5, k6]}))
+    log(json.dumps({"kernels": [k1, k1_train, k1_f32, k2, skirt8, skirt1, k3, k4, k4_f32, k5,
+                                k6]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

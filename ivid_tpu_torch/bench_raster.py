@@ -355,9 +355,11 @@ def measure(inp: Input, listed: int, other: Other | None = None, plain=True):
     version's with the lists' length given), and ``other_vs_this`` how far
     the other's output lies from this version's."""
     cols, r, A = inp.cols(), inp.r, inp.A
+    last = {}  # the offsets of the last timed call, checked once the timing is done
 
     def kernels():
-        return rd.raster_tiles(*rd.bin_tiles(cols, r, listed), r, A)
+        geom, pay, last["offsets"], ids = rd.bin_tiles(cols, r, listed)
+        return rd.raster_tiles(geom, pay, last["offsets"], ids, r, A)
 
     res = {"this": {
         "columns_host_ms": timing.host_ms(inp.cols),
@@ -379,10 +381,14 @@ def measure(inp: Input, listed: int, other: Other | None = None, plain=True):
             "pixels_differing": sum(int((getattr(got, f) != getattr(want, f)).sum())
                                     for f in ("depth", "covered", "front")),
             "max_abs_diff": (got.attrs - want.attrs).abs().max().item()}}
-        calls = {"this": lambda: rd.raster_tiles(*rd.bin_tiles(inp.cols(), r, listed), r, A),
-                 "other": other_call}
+        def this_call():
+            geom, pay, last["offsets"], ids = rd.bin_tiles(inp.cols(), r, listed)
+            return rd.raster_tiles(geom, pay, last["offsets"], ids, r, A)
+
+        calls = {"this": this_call, "other": other_call}
         for name in ("other", "this", "this", "other"):
             res[name].setdefault("call", []).append(_call_ms(calls[name]))
+    rd.check_capacity(last["offsets"], listed)
     res["this"]["call_host_ms"], res["this"]["sync_host_ms"] = _host_and_sync_ms(
         lambda: inp.call(rd))
     if plain:

@@ -38,11 +38,22 @@
 //   CUDA cores and special-function units while the tensor cores finish
 //   both; only the rescale of O waits for P_j V_j. At batch 2 one block is
 //   alone on its SM, so this overlap, not other blocks, hides the latency.
-// - f32: two threads per query row, each holding 32 of the 64 dims of q and of
-//   the accumulator in registers; K/V tiles are stored with the two halves
-//   interleaved, so the pair reads neighbouring banks and the rest of the warp
-//   reads the same words (broadcast): no bank conflicts. CUDA-core FMAs hold
-//   the f32 path to 1e-4 of the plain version.
+// - f32: split-precision TF32 products on the tensor cores (csrc/tf32.cuh:
+//   each operand as hi + lo, each product as lo*hi + hi*lo + hi*hi), which
+//   hold the plain version's 1e-4 at 3x the TF32 work. What bounds it: the
+//   same 4 B H T^2 D flops, taken 3 times at 494.7 TFLOP/s (0.052 ms at
+//   [8, 1024, 768]). One block per (sample, head, 64-query tile), four
+//   warps of 16 queries. Q is split once into A fragments kept in
+//   registers. Each 64-key K/V tile arrives by 16-byte cp.async copies into
+//   a raw stage and is split into hi and lo tiles once per block; the next
+//   tile's copies run while this one is multiplied. S = Q K^T (m16n8k8,
+//   three products a k8 step, summed in the tensor cores' accumulator)
+//   lands in the bf16 path's accumulator layout, so the same online softmax
+//   runs on it in registers; O, which runs over the whole walk, is summed
+//   in step sums added on the CUDA cores (tf32.cuh); P is split in
+//   registers and multiplies V with its keys taken in the order that maps
+//   the accumulator onto the A operand (tf32.cuh), so P never touches shared
+//   memory. 102 KB of shared memory: two blocks share an SM.
 // - The TPU's even-head rule (128-lane stripes) does not apply.
 // - For training, the launch may also write each row's log-sum-exp of the
 //   logits (f32 [B, H, T], natural log) so the backward
@@ -53,6 +64,7 @@
 #include <math.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -60,7 +72,6 @@ constexpr int kD = 64;        // head width (the only one the configs use)
 constexpr int kBQ = 64;       // queries per block
 constexpr int kBK = 64;       // keys per shared-memory tile
 constexpr int kThreads = 128;
-constexpr int kHalf = kD / 2;
 constexpr float kLn2 = 0.69314718055994531f;
 
 // ---------------------------------------------------------------- bf16 path
@@ -250,86 +261,117 @@ packed_attention_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
 }
 
 // ----------------------------------------------------------------- f32 path
-__global__ void __launch_bounds__(kThreads)
+// Raw K and V tiles (the next tile's copies land here), then the hi and lo
+// parts of K and of V.
+constexpr size_t kSmemF32 = 6 * tf32::kTileF * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads, 2)
 packed_attention_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out,
                          float* __restrict__ lse, int seq, int heads, float qscale) {
-  __shared__ float ks[kBK * kD];
-  __shared__ float vs[kBK * kD];
+  using namespace tf32;
+  extern __shared__ float4 smem_f4[];
+  float* raw_k = reinterpret_cast<float*>(smem_f4);
+  float* raw_v = raw_k + kTileF;
+  uint32_t* kh = reinterpret_cast<uint32_t*>(raw_v + kTileF);
+  uint32_t* kl = kh + kTileF;
+  uint32_t* vh = kl + kTileF;
+  uint32_t* vl = vh + kTileF;
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
   const int tid = threadIdx.x;
-  const int row = tid >> 1;
-  const int half = tid & 1;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t4 = tid % 4;
+  const int ntiles = (seq + kBK - 1) / kBK;
   const long long c3 = 3LL * heads * kD;
   const float* base = qkv + (long long)b * seq * c3 + (long long)h * 3 * kD;
-  const int qi = q0 + row;
-  const bool qvalid = qi < seq;
 
-  float q[kHalf];
-  float o[kHalf];
+  // Q is staged once, and each warp splits its 16 rows into A fragments
+  // that stay in registers for the whole walk.
+  stage(raw_k, base, c3, q0, seq);
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  FragA qa[kD / 8];
 #pragma unroll
-  for (int d = 0; d < kHalf; ++d) {
-    q[d] = qvalid ? base[(long long)qi * c3 + half * kHalf + d] * qscale : 0.f;
-    o[d] = 0.f;
-  }
-  float m = -INFINITY;
-  float l = 0.f;
+  for (int kk = 0; kk < kD / 8; ++kk) load_a_split(qa[kk], raw_k, warp * 16, 8 * kk, g, t4);
+  __syncthreads();
+  stage(raw_k, base + kD, c3, 0, seq);
+  stage(raw_v, base + 2 * kD, c3, 0, seq);
+  cp_commit();
 
-  for (int k0 = 0; k0 < seq; k0 += kBK) {
-    const int nk = min(kBK, seq - k0);
-    __syncthreads();  // the previous tile is fully consumed
-    for (int e = tid; e < kBK * kD; e += kThreads) {
-      const int rr = e / kD;
-      const int c = e % kD;  // fastest: coalesced global reads
-      const int slot = rr * kD + (c % kHalf) * 2 + c / kHalf;
-      float kv = 0.f, vv = 0.f;
-      if (rr < nk) {
-        const float* p = base + (long long)(k0 + rr) * c3;
-        kv = p[kD + c];
-        vv = p[2 * kD + c];
-      }
-      ks[slot] = kv;
-      vs[slot] = vv;
-    }
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float alpha[2];
+  float sc[32];
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_wait_all();
+    __syncthreads();  // tile j has landed, and every warp is done with tile j-1's parts
+    split_tile(kh, kl, raw_k);
+    split_tile(vh, vl, raw_v);
     __syncthreads();
+    if (j + 1 < ntiles) {  // tile j+1 is copied while tile j is multiplied
+      stage(raw_k, base + kD, c3, (j + 1) * kBK, seq);
+      stage(raw_v, base + 2 * kD, c3, (j + 1) * kBK, seq);
+      cp_commit();
+    }
 
-    float s[kBK];
-    float mt = -INFINITY;
+    // S = Q K^T: this warp's 16 queries x the tile's 64 keys, in the
+    // accumulator layout of the bf16 path (rows g and g + 8).
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float* kr = ks + j * kD + half;
-      float acc = 0.f;
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
 #pragma unroll
-      for (int d = 0; d < kHalf; ++d) acc = fmaf(q[d], kr[2 * d], acc);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      s[j] = j < nk ? acc : -INFINITY;
-      mt = fmaxf(mt, s[j]);
+    for (int kk = 0; kk < kD / 8; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < kBK / 8; ++nt) {
+        FragB kb;
+        load_b_rows(kb, kh, kl, 8 * nt, 8 * kk, g, t4);
+        mma3_tile(sc + 4 * nt, qa[kk], kb);
+      }
     }
-    const float mnew = fmaxf(m, mt);
-    const float alpha = exp2f(m - mnew);
-    l *= alpha;
+    softmax_tile(sc, m, l, alpha, qscale, j * kBK, seq, t4);
 #pragma unroll
-    for (int d = 0; d < kHalf; ++d) o[d] *= alpha;
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V with P split in registers, keys in the order of tf32.cuh.
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float p = exp2f(s[j] - mnew);
-      l += p;
-      const float* vr = vs + j * kD + half;
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      FragA pa;
+      a_from_acc(pa, sc + 4 * kk);
 #pragma unroll
-      for (int d = 0; d < kHalf; ++d) o[d] = fmaf(p, vr[2 * d], o[d]);
+      for (int nt = 0; nt < kD / 8; ++nt) {
+        FragB vb;
+        load_b_cols(vb, vh, vl, 8 * kk, 8 * nt, g, t4);
+        mma3(o + 4 * nt, pa, vb);
+      }
     }
-    m = mnew;
   }
 
-  if (qvalid) {
-    float* dst = out + ((long long)b * seq + qi) * heads * kD + h * kD + half * kHalf;
-    const float inv = 1.f / l;
 #pragma unroll
-    for (int d = 0; d < kHalf; ++d) dst[d] = o[d] * inv;
-    if (lse != nullptr && half == 0) {
-      lse[((long long)b * heads + h) * seq + qi] = (m + log2f(l)) * kLn2;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const long long ld = (long long)heads * kD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + g + 8 * r;
+    if (qi >= seq) continue;
+    const float inv = 1.f / l[r];
+    float* dst = out + ((long long)b * seq + qi) * ld + h * kD + 2 * t4;
+#pragma unroll
+    for (int nt = 0; nt < kD / 8; ++nt) {
+      *reinterpret_cast<float2*>(dst + 8 * nt) =
+          make_float2(o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
+    }
+    if (lse != nullptr && t4 == 0) {
+      lse[((long long)b * heads + h) * seq + qi] = (m[r] + log2f(l[r])) * kLn2;
     }
   }
 }
@@ -357,7 +399,10 @@ extern "C" int packed_attention_fwd_launch(const void* qkv, void* out, void* lse
     packed_attention_fwd_bf16<<<grid, kThreads, kSmemBf16, s>>>(
         map, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), seq, heads, qscale);
   } else {
-    packed_attention_fwd_f32<<<grid, kThreads, 0, s>>>(
+    static bool opted_in[hopper::kMaxDevices] = {};
+    const cudaError_t err = hopper::smem_opt_in(packed_attention_fwd_f32, kSmemF32, opted_in);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    packed_attention_fwd_f32<<<grid, kThreads, kSmemF32, s>>>(
         static_cast<const float*>(qkv), static_cast<float*>(out), static_cast<float*>(lse), seq,
         heads, qscale);
   }

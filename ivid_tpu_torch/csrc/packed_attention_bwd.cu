@@ -53,15 +53,29 @@
 //   layouts; the 64 stats pairs of a query tile by a bulk copy on the same
 //   barrier) into a two-stage ring: tile j+1 is in flight while tile j is
 //   multiplied. S, P, dP and dS never touch shared memory.
-// - f32 runs exact FMAs on the CUDA cores, two threads per row holding half
-//   of the 64 dims each (the layout of the forward's f32 path), with the
-//   staged tiles interleaved so the pair reads neighbouring banks.
+// - f32 takes split-precision TF32 products on the tensor cores (csrc/tf32.cuh:
+//   each operand as hi + lo, each product as lo*hi + hi*lo + hi*hi, near f32
+//   accuracy). Its bound is the 10 B H T^2 D flops taken 3 times at 494.7
+//   TFLOP/s (0.130 ms at [8, 1024, 768]); this design does 14 of the 10
+//   (the dQ blocks redo S and dP). The same two kinds of block in one launch,
+//   four warps of 16 rows each; mma.sync m16n8k8 instead of wgmma, because
+//   wgmma's tf32 form reads shared-memory operands K-major only and five of
+//   the products here need a transposed one. A block's own two tiles stay
+//   raw and each warp splits its A fragments as it loads them; the two it
+//   streams arrive by 16-byte cp.async copies and are split in place once
+//   per block. S^T, dP^T, S and dP are summed in the tensor cores'
+//   accumulator (one tile each); dK, dV and dQ, which run over the whole
+//   walk, in step sums added on the CUDA cores (tf32.cuh: the tensor cores
+//   round toward zero). P^T, dS^T and dS stay in registers (the token order
+//   of tf32.cuh maps an accumulator onto the next product's A operand).
+//   105 KB of shared memory: two blocks share an SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -70,7 +84,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kD = 64;        // head width
 constexpr int kTile = 64;     // queries or keys per tile
 constexpr int kThreads = 128;
-constexpr int kHalf = kD / 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr int kStages = 2;
@@ -386,146 +399,186 @@ attn_bwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
   }
 }
 
-// ------------------------------------------------------------------ f32 paths
-// Stage 64 rows x 64 f32 of a row-major source into a tile whose two
-// 32-dim halves are interleaved: element (r, c) at r*64 + (c%32)*2 + c/32.
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long long ld,
-                                              int row0, int seq) {
-  for (int e = threadIdx.x; e < kTile * kD; e += kThreads) {
-    const int r = e / kD;
-    const int c = e % kD;
-    dst[r * kD + (c % kHalf) * 2 + c / kHalf] =
-        row0 + r < seq ? src[(long long)(row0 + r) * ld + c] : 0.f;
+// ------------------------------------------------------------------ f32 path
+// Split-precision TF32 products (csrc/tf32.cuh), the structure of the bf16
+// backward: dK/dV blocks and dQ blocks in one launch. A block's own two
+// tiles (dK/dV: K and V of its keys; dQ: Q and dO of its queries) stay raw
+// and each warp splits its A fragments as it loads them; the other two
+// (dK/dV: Q and dO; dQ: K and V) stream by in 64-row tiles, copied by
+// cp.async and split in place once per block. Nothing is copied ahead: at
+// 105 KB two blocks share an SM and each one's copies run under the other's
+// products (measured 1.5x faster than one block per SM with its next tile
+// copied ahead, 171 KB).
+// Own raw tiles (2), streamed hi/lo tiles (4), a query tile's (lse2, D) pairs.
+constexpr size_t kSmemF32 = 6 * tf32::kTileF * sizeof(float) + kTile * sizeof(float2);
+
+// acc (16 x 64, from zero) += A B^T over the 64 head dims: A the warp's 16 rows
+// [m0, m0 + 16) of a raw own tile, B the 64 rows of a split streamed tile.
+__device__ __forceinline__ void tile_product(float (&acc)[32], const float* a_raw,
+                                             const uint32_t* b_hi, const uint32_t* b_lo, int m0,
+                                             int g, int t4) {
+  using namespace tf32;
+#pragma unroll
+  for (int kk = 0; kk < kD / 8; ++kk) {
+    FragA a;
+    load_a_split(a, a_raw, m0, 8 * kk, g, t4);
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      FragB b;
+      load_b_rows(b, b_hi, b_lo, 8 * nt, 8 * kk, g, t4);
+      mma3_tile(acc + 4 * nt, a, b);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
-                  const float2* __restrict__ stats, float* __restrict__ dqkv, int seq, int tpad,
-                  int heads, float qscale, float gscale) {
-  __shared__ float q_s[kTile * kD];
-  __shared__ float do_s[kTile * kD];
-  __shared__ float lse_s[kTile];
-  __shared__ float dl_s[kTile];
+// acc (16 x 64) += P B over the tile's 64 tokens: P an accumulator in
+// registers (tokens as its columns), B a split streamed tile (tokens as its
+// rows); a running sum, so in step sums.
+__device__ __forceinline__ void walk_product(float (&acc)[32], const float (&p)[32],
+                                             const uint32_t* b_hi, const uint32_t* b_lo, int g,
+                                             int t4) {
+  using namespace tf32;
+#pragma unroll
+  for (int kk = 0; kk < kTile / 8; ++kk) {
+    FragA a;
+    a_from_acc(a, p + 4 * kk);
+#pragma unroll
+    for (int nt = 0; nt < kD / 8; ++nt) {
+      FragB b;
+      load_b_cols(b, b_hi, b_lo, 8 * kk, 8 * nt, g, t4);
+      mma3(acc + 4 * nt, a, b);
+    }
+  }
+}
 
-  const int b = blockIdx.z;
+// dK/dV block, one query tile: S^T = K Q^T and dP^T = V dO^T for this warp's
+// 16 keys, P^T and dS^T in registers, then dV += P^T dO and dK += dS^T Q.
+// Each product in a loop of its own: one A and one B fragment live at a
+// time, which keeps the registers under the cap of two blocks per SM.
+__device__ __forceinline__ void dkdv_tile_f32(const float* own, const uint32_t* str,
+                                              const float2* st_s, float (&dk)[32],
+                                              float (&dv)[32], int m0, int g, int t4,
+                                              float qscale) {
+  using namespace tf32;
+  float st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+  tile_product(st, own, str, str + kTileF, m0, g, t4);
+  tile_product(dpt, own + kTileF, str + 2 * kTileF, str + 3 * kTileF, m0, g, t4);
+  // P^T = exp2(S^T qscale - lse2[q]) and dS^T = P^T o (dP^T - D[q]) in place;
+  // column (query) 8 (i / 4) + 2 t4 + (i & 1). Pad queries: lse2 = +inf, P = 0.
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float2 r = st_s[8 * (i / 4) + 2 * t4 + (i & 1)];
+    const float p = hopper::exp2_approx(st[i] * qscale - r.x);
+    st[i] = p;
+    dpt[i] = p * (dpt[i] - r.y);
+  }
+  walk_product(dv, st, str + 2 * kTileF, str + 3 * kTileF, g, t4);
+  walk_product(dk, dpt, str, str + kTileF, g, t4);
+}
+
+// dQ block, one key tile: S = Q K^T and dP = dO V^T for this warp's 16
+// queries, dS in registers (keys past `seq` masked), then dQ += dS K.
+__device__ __forceinline__ void dq_tile_f32(const float* own, const uint32_t* str,
+                                            const float2 (&rs)[2], float (&dq)[32], int m0,
+                                            int kbase, int seq, int g, int t4, float qscale) {
+  using namespace tf32;
+  float sa[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sa[i] = dp[i] = 0.f;
+  tile_product(sa, own, str, str + kTileF, m0, g, t4);
+  tile_product(dp, own + kTileF, str + 2 * kTileF, str + 3 * kTileF, m0, g, t4);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float2 r = rs[(i >> 1) & 1];
+    const bool valid = kbase + 8 * (i / 4) + 2 * t4 + (i & 1) < seq;
+    const float p = valid ? hopper::exp2_approx(sa[i] * qscale - r.x) : 0.f;
+    sa[i] = p * (dp[i] - r.y);
+  }
+  walk_product(dq, sa, str, str + kTileF, g, t4);
+}
+
+// Both f32 passes in one launch, laid out as attn_bwd_bf16's: blockIdx.z <
+// batch are the dK/dV blocks (one per 64-key tile), the rest the dQ blocks
+// (one per 64-query tile).
+__global__ void __launch_bounds__(kThreads, 2)
+attn_bwd_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
+             const float2* __restrict__ stats, float* __restrict__ dqkv, int batch, int seq,
+             int tpad, int heads, float qscale, float gscale) {
+  using namespace tf32;
+  extern __shared__ float4 smem_f4[];
+  float* own = reinterpret_cast<float*>(smem_f4);
+  uint32_t* str = reinterpret_cast<uint32_t*>(own + 2 * kTileF);
+  float2* st_s = reinterpret_cast<float2*>(str + 4 * kTileF);
+
+  const bool dkdv = blockIdx.z < batch;
+  const int b = dkdv ? blockIdx.z : blockIdx.z - batch;
   const int h = blockIdx.y;
+  const int row0 = blockIdx.x * kTile;
   const int tid = threadIdx.x;
-  const int row = tid >> 1;
-  const int half = tid & 1;
-  const int kj = blockIdx.x * kTile + row;
-  const bool kvalid = kj < seq;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t4 = tid % 4;
+  const int ntiles = tpad / kTile;
   const long long c3 = 3LL * heads * kD;
   const long long c1 = (long long)heads * kD;
   const float* base = qkv + (long long)b * seq * c3 + (long long)h * 3 * kD;
   const float* gbase = dout + (long long)b * seq * c1 + (long long)h * kD;
   const float2* stats_bh = stats + ((long long)b * heads + h) * tpad;
+  const float* own0 = dkdv ? base + kD : base;
+  const float* own1 = dkdv ? base + 2 * kD : gbase;
+  const long long own1_ld = dkdv ? c3 : c1;
+  const float* str0 = dkdv ? base : base + kD;
+  const float* str1 = dkdv ? gbase : base + 2 * kD;
+  const long long str1_ld = dkdv ? c1 : c3;
 
-  float kr[kHalf], vr[kHalf], dk[kHalf], dv[kHalf];
+  stage(own, own0, c3, row0, seq);
+  stage(own + kTileF, own1, own1_ld, row0, seq);
+  cp_commit();
+
+  // lse2 and D of a dQ block's rows g and g + 8 of its warp's 16 (pad: +inf, 0).
+  const float2 rs[2] = {stats_bh[row0 + warp * 16 + g], stats_bh[row0 + warp * 16 + g + 8]};
+  float acc0[32], acc1[32];  // dK/dV: dK and dV; dQ: dQ in acc0
 #pragma unroll
-  for (int d = 0; d < kHalf; ++d) {
-    kr[d] = kvalid ? base[(long long)kj * c3 + kD + half * kHalf + d] : 0.f;
-    vr[d] = kvalid ? base[(long long)kj * c3 + 2 * kD + half * kHalf + d] : 0.f;
-    dk[d] = 0.f;
-    dv[d] = 0.f;
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    __syncthreads();  // every warp is done with tile j-1's parts
+    stage(reinterpret_cast<float*>(str), str0, c3, j * kTile, seq);
+    stage(reinterpret_cast<float*>(str + 2 * kTileF), str1, str1_ld, j * kTile, seq);
+    cp_commit();
+    cp_wait_all();
+    __syncthreads();
+    // In place: the hi tiles are where the copies landed.
+    split_tile(str, str + kTileF, reinterpret_cast<const float*>(str));
+    split_tile(str + 2 * kTileF, str + 3 * kTileF, reinterpret_cast<const float*>(str + 2 * kTileF));
+    if (dkdv && tid < kTile) st_s[tid] = stats_bh[j * kTile + tid];
+    __syncthreads();
+    if (dkdv) {
+      dkdv_tile_f32(own, str, st_s, acc0, acc1, warp * 16, g, t4, qscale);
+    } else {
+      dq_tile_f32(own, str, rs, acc0, warp * 16, j * kTile, seq, g, t4, qscale);
+    }
   }
 
-  for (int q0 = 0; q0 < seq; q0 += kTile) {
-    __syncthreads();
-    load_tile_f32(q_s, base, c3, q0, seq);
-    load_tile_f32(do_s, gbase, c1, q0, seq);
-    for (int i = tid; i < kTile; i += kThreads) {
-      const float2 st = stats_bh[q0 + i];  // pad rows: +inf, 0
-      lse_s[i] = st.x;
-      dl_s[i] = st.y;
-    }
-    __syncthreads();
-    for (int i = 0; i < kTile; ++i) {
-      const float* qi = q_s + i * kD + half;
-      const float* gi = do_s + i * kD + half;
-      float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < kHalf; ++d) {
-        s = fmaf(kr[d], qi[2 * d], s);
-        dp = fmaf(vr[d], gi[2 * d], dp);
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + g + 8 * r;
+    if (row >= seq) continue;
+    float* dst = dqkv + ((long long)b * seq + row) * c3 + (long long)h * 3 * kD + 2 * t4;
+#pragma unroll
+    for (int nt = 0; nt < kD / 8; ++nt) {
+      const int i = 4 * nt + 2 * r;
+      if (dkdv) {
+        *reinterpret_cast<float2*>(dst + kD + 8 * nt) =
+            make_float2(acc0[i] * gscale, acc0[i + 1] * gscale);
+        *reinterpret_cast<float2*>(dst + 2 * kD + 8 * nt) = make_float2(acc1[i], acc1[i + 1]);
+      } else {
+        *reinterpret_cast<float2*>(dst + 8 * nt) =
+            make_float2(acc0[i] * gscale, acc0[i + 1] * gscale);
       }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      const float p = exp2f(s * qscale - lse_s[i]);
-      const float ds = p * (dp - dl_s[i]);
-#pragma unroll
-      for (int d = 0; d < kHalf; ++d) {
-        dv[d] = fmaf(p, gi[2 * d], dv[d]);
-        dk[d] = fmaf(ds, qi[2 * d], dk[d]);
-      }
     }
-  }
-  if (kvalid) {
-    float* dst = dqkv + ((long long)b * seq + kj) * c3 + (long long)h * 3 * kD + half * kHalf;
-#pragma unroll
-    for (int d = 0; d < kHalf; ++d) {
-      dst[kD + d] = dk[d] * gscale;
-      dst[2 * kD + d] = dv[d];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
-                const float2* __restrict__ stats, float* __restrict__ dqkv, int seq, int tpad,
-                int heads, float qscale, float gscale) {
-  __shared__ float k_s[kTile * kD];
-  __shared__ float v_s[kTile * kD];
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int row = tid >> 1;
-  const int half = tid & 1;
-  const int qi = blockIdx.x * kTile + row;
-  const bool qvalid = qi < seq;
-  const long long c3 = 3LL * heads * kD;
-  const long long c1 = (long long)heads * kD;
-  const float* base = qkv + (long long)b * seq * c3 + (long long)h * 3 * kD;
-  const float* gbase = dout + (long long)b * seq * c1 + (long long)h * kD;
-  const float2 st = stats[((long long)b * heads + h) * tpad + qi];  // pad rows: +inf, 0
-  const float lse2 = st.x;
-  const float drow = st.y;
-
-  float qr[kHalf], gr[kHalf], dq[kHalf];
-#pragma unroll
-  for (int d = 0; d < kHalf; ++d) {
-    qr[d] = qvalid ? base[(long long)qi * c3 + half * kHalf + d] : 0.f;
-    gr[d] = qvalid ? gbase[(long long)qi * c1 + half * kHalf + d] : 0.f;
-    dq[d] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < seq; k0 += kTile) {
-    const int nk = min(kTile, seq - k0);
-    __syncthreads();
-    load_tile_f32(k_s, base + kD, c3, k0, seq);
-    load_tile_f32(v_s, base + 2 * kD, c3, k0, seq);
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {
-      const float* kj = k_s + j * kD + half;
-      const float* vj = v_s + j * kD + half;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < kHalf; ++d) {
-        s = fmaf(qr[d], kj[2 * d], s);
-        dp = fmaf(gr[d], vj[2 * d], dp);
-      }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      const float ds = exp2f(s * qscale - lse2) * (dp - drow);
-#pragma unroll
-      for (int d = 0; d < kHalf; ++d) dq[d] = fmaf(ds, kj[2 * d], dq[d]);
-    }
-  }
-  if (qvalid) {
-    float* dst = dqkv + ((long long)b * seq + qi) * c3 + (long long)h * 3 * kD + half * kHalf;
-#pragma unroll
-    for (int d = 0; d < kHalf; ++d) dst[d] = dq[d] * gscale;
   }
 }
 
@@ -548,7 +601,6 @@ extern "C" int packed_attention_bwd_launch(const void* qkv, const void* out, con
   const long long rows = (long long)batch * tpad * heads;
   const int lanes = is_bf16 ? kD / 8 : kD / 4;  // the stats kernel's lanes per row
   const unsigned sgrid = static_cast<unsigned>((rows * lanes + kThreads - 1) / kThreads);
-  const dim3 grid(tpad / kTile, heads, batch);
   const float* lse_f = static_cast<const float*>(lse);
   float2* stats = static_cast<float2*>(scratch);
   if (is_bf16) {
@@ -568,13 +620,16 @@ extern "C" int packed_attention_bwd_launch(const void* qkv, const void* out, con
                                                      static_cast<bf16*>(dqkv), batch, seq, tpad,
                                                      heads, qscale, gscale);
   } else {
-    const float* q = static_cast<const float*>(qkv);
+    static bool opted_in[hopper::kMaxDevices] = {};
+    const cudaError_t err = hopper::smem_opt_in(attn_bwd_f32, kSmemF32, opted_in);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const float* g = static_cast<const float*>(dout);
-    float* dq = static_cast<float*>(dqkv);
     attn_bwd_stats<float><<<sgrid, kThreads, 0, s>>>(static_cast<const float*>(out), g, lse_f,
                                                      stats, rows, seq, tpad, heads);
-    attn_bwd_dkdv_f32<<<grid, kThreads, 0, s>>>(q, g, stats, dq, seq, tpad, heads, qscale, gscale);
-    attn_bwd_dq_f32<<<grid, kThreads, 0, s>>>(q, g, stats, dq, seq, tpad, heads, qscale, gscale);
+    const dim3 grid2(tpad / kTile, heads, 2 * batch);  // dK/dV blocks, then dQ blocks
+    attn_bwd_f32<<<grid2, kThreads, kSmemF32, s>>>(static_cast<const float*>(qkv), g, stats,
+                                                   static_cast<float*>(dqkv), batch, seq, tpad,
+                                                   heads, qscale, gscale);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,9 +29,12 @@ HEAD_DIM = 64
 _LOG2E = math.log2(math.e)
 
 # Kernel launches since the counters were last reset (chip_smoke.py reads
-# them): K1 forward launches and K4 backward launches.
+# them): K1 forward launches and K4 backward launches, each of either path,
+# and of those the f32 path's (its own kernels).
 launches = 0
 bwd_launches = 0
+f32_launches = 0
+bwd_f32_launches = 0
 
 
 def reference_attention(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
@@ -110,7 +113,7 @@ def _launch(qkv: torch.Tensor, heads: int, scale: float, with_lse: bool = False)
     ``lse [B, H, T]`` (f32) of each row's logits ``scale² q·k``."""
     from ivid_tpu_torch import cuda_build
 
-    global launches
+    global launches, f32_launches
     _check(qkv, heads)
     b, t, c3 = qkv.shape
     fn = cuda_build.function("packed_attention", "packed_attention_fwd_launch", _FWD_ARGS)
@@ -126,6 +129,7 @@ def _launch(qkv: torch.Tensor, heads: int, scale: float, with_lse: bool = False)
     if rc != 0:
         raise RuntimeError(f"packed_attention kernel launch failed: CUDA error {rc}")
     launches += 1
+    f32_launches += qkv.dtype == torch.float32
     return out, lse
 
 
@@ -135,7 +139,7 @@ def _launch_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, lse: t
     ``out`` and ``lse`` and the output gradient ``dout``."""
     from ivid_tpu_torch import cuda_build
 
-    global bwd_launches
+    global bwd_launches, bwd_f32_launches
     _check(qkv, heads)
     b, t, c3 = qkv.shape
     if out.shape != (b, t, c3 // 3) or dout.shape != out.shape or lse.shape != (b, heads, t):
@@ -163,6 +167,7 @@ def _launch_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, lse: t
     if rc != 0:
         raise RuntimeError(f"packed attention backward launch failed: CUDA error {rc}")
     bwd_launches += 1
+    bwd_f32_launches += qkv.dtype == torch.float32
     return dqkv
 
 

@@ -428,16 +428,19 @@ def _tile_bins(geom: torch.Tensor, r: int):
     return keep
 
 
-def bin_tiles_reference(geom: torch.Tensor, valid: torch.Tensor, r: int):
+def bin_tiles_reference(geom: torch.Tensor, valid: torch.Tensor, r: int,
+                        capacity: Optional[int] = None):
     """Plain version of K2's bins: ``(offsets [B·nt² + 1], ids)`` int32, tile
     ``b·nt² + ty·nt + tx`` (nt = ceil(r/16)) listing the valid triangles whose
     pixel centres may lie in it, in ascending triangle id (the kernel's lists
-    hold the same ids in the order its atomics gave)."""
+    hold the same ids in the order its atomics gave). With ``capacity``, ids
+    keeps only its first ``capacity`` entries, as the fill kernel writes no
+    entry past it, and the offsets still hold the true total."""
     keep = _tile_bins(geom, r) & valid[..., None]
     counts = keep.sum(1).reshape(-1)
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).int()
     ids = keep.permute(0, 2, 1).nonzero()[:, 2].int()
-    return offsets, ids
+    return offsets, ids if capacity is None else ids[:capacity]
 
 
 def _walk(g, qx, qy):
@@ -511,8 +514,9 @@ def bin_tiles(cols: Cols, r: int, capacity: Optional[int] = None):
     the call waits for the count. With ``capacity``, ids gets that length
     and the call does not wait (a timed run passes the length an earlier
     call on the same columns gave); the kernels write and read no entry of
-    ids past it, so a shorter one cuts lists short. Raises unless the
-    columns are CUDA tensors."""
+    ids past it, so a shorter one cuts lists short, and the caller checks
+    the returned offsets with :func:`check_capacity` once its timing is
+    done. Raises unless the columns are CUDA tensors."""
     from ivid_tpu_torch import cuda_build
 
     global bin_launches, sync_s
@@ -558,6 +562,17 @@ def bin_tiles(cols: Cols, r: int, capacity: Optional[int] = None):
         _raise_on(rc, "bin fill")
     bin_launches += 1
     return geom, pay, offsets, ids
+
+
+def check_capacity(offsets: torch.Tensor, capacity: int) -> None:
+    """Raises unless the bins' lists fit in ``capacity`` ids: ``offsets[-1]``
+    of a :func:`bin_tiles` call holds the true total, and a call given a
+    smaller capacity dropped the ids past it. Reading it waits for the card,
+    so a timed caller checks the offsets of its last call after the timing."""
+    listed = int(offsets[-1])
+    if listed > capacity:
+        raise RuntimeError(f"K2's bins hold {listed} ids but were given room for {capacity}: "
+                           f"{listed - capacity} were dropped")
 
 
 def _raise_on(rc: int, what: str):

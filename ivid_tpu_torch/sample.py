@@ -10,7 +10,7 @@ numpy seed (0 for uncond, 1 for cond); any other value is a reference
 PyTorch state-dict file (``.pt``), whose names this port's UNet shares.
 
 Besides the JAX CLI's records it writes every scene's npz for the ``random``
-viewset too. Depth grids are gray (the cv2 INFERNO colormap is not ported).
+viewset too. Depth grids use the INFERNO colormap, as the JAX CLI's.
 """
 
 from __future__ import annotations

@@ -248,3 +248,23 @@ def test_other_checkout_runs_beside_this_one():
     assert sys.modules["ivid_tpu_torch.ops.raster_dense"] is trd
     want = trd.rasterize_grid_dense_batched(*t, g, r)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_capacity_check_raises_when_bins_were_cut_short():
+    """K2's bins given a capacity one below their true total drop the last
+    id, and the caller's check of the returned offsets raises instead of
+    letting it pass (``bench_raster.measure`` checks after its timing); at
+    the true total or above, the lists are whole and the check passes."""
+    cols = br.tri_set(HAZARDS, R_HAZ)
+    geom = torch.stack(cols.geom, dim=-1)
+    offsets, ids = trd.bin_tiles_reference(geom, cols.valid, R_HAZ)
+    listed = int(offsets[-1])
+    assert listed == ids.numel() > 0
+    for capacity in (listed, listed + 7):
+        got_offsets, got_ids = trd.bin_tiles_reference(geom, cols.valid, R_HAZ, capacity)
+        assert torch.equal(got_offsets, offsets) and torch.equal(got_ids, ids)
+        trd.check_capacity(got_offsets, capacity)
+    got_offsets, got_ids = trd.bin_tiles_reference(geom, cols.valid, R_HAZ, listed - 1)
+    assert got_ids.numel() == listed - 1 and int(got_offsets[-1]) == listed
+    with pytest.raises(RuntimeError, match="1 were dropped"):
+        trd.check_capacity(got_offsets, listed - 1)
