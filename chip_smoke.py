@@ -28,8 +28,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 5. K2 on indexed triangles (the same render's skirt rings) at B=8 and B=1,
    checked and timed as in 3;
    then K6 (the sort-then-tile resolve prototype) against its plain version
-   at ``bench_resolve``'s shape and, with ``tile_finish``, against K3 and the
-   scatter on the same render, its preparation and kernel timed beside K3's;
+   at ``bench_resolve``'s shape, on the same render and on the bench shape
+   with 64 stacked pixels (two launches bit-equal on each), timed warm and
+   with the L2 cache cleared; with ``tile_finish`` against K3 and the
+   scatter on the render, its preparation and kernel timed beside K3's;
    K5 (the pre-binned resolve prototype) against its plain version at
    ``bench_micro``'s shape; then ``ivid_tpu_torch.bench_resolve.main`` and
    ``ivid_tpu_torch.bench_micro.main`` at their defaults;
@@ -132,7 +134,9 @@ K3_PAY_MAX = 1e-5
 K4_F32_MAX, K4_BF16_REL = 1e-4, 1e-2
 # K5 and K6 vs their plain versions on the card: the depth minimum and the
 # winner count are one minimum and one count, equal on every pixel; the sums
-# differ by f32 sum order (K5 adds with atomics, in an order that varies).
+# differ by f32 sum order (K5 and the plain versions add with atomics, in an
+# order that varies). K6's stacked input sums ~500 ties to ~256 on a pixel,
+# where f32 steps by 3.05e-5: there the bound is this share of the sum.
 K56_SUM_MAX = 1e-5
 # Training chain on the card vs the CPU plain path (f32, TF32 off, the same
 # draws): the losses differ by f32 sum order and by warp-mask pixels on knife
@@ -417,28 +421,12 @@ def phase_skirt(f, r):
                                       (1, "dense_raster_b1", "ivid_tpu/ops/raster_dense.py:458"))]
 
 
-def compare_tiles(got, want, tag):
-    """K5/K6 output [T, 5, 1024] against its plain version: the depth (row 0)
-    and, for K6, the count (row 4) on every pixel; the sums within
-    K56_SUM_MAX. Returns (pixels differing, largest sum error)."""
-    exact = [0] if tag == "K5" else [0, 4]
-    sums = [1, 2, 3, 4] if tag == "K5" else [1, 2, 3]
-    bad = int((got[:, exact] != want[:, exact]).sum())
-    err = (got[:, sums] - want[:, sums]).abs().max().item()
-    return bad, err
-
-
-def tile_bytes(bounds, lp):
-    """The bytes K6 must move on these inputs: the bounds, lp, z and payload
-    (20 bytes) of each fragment in the tiles' ranges that falls on a pixel
-    (the others sort last in their tile and are cut off by a search), and
-    the [T, 5, 1024] f32 output."""
-    from ivid_tpu_torch.ops import resolve_variants as rv
-
-    seg = lp[int(bounds[0]):int(bounds[-1])]
-    falls = int(((seg >= 0) & (seg < rv.TILE)).sum())
-    tiles = bounds.numel() - 1
-    return bounds.numel() * 4 + falls * 20 + tiles * 5 * rv.TILE * 4
+def compare_binned(got, want):
+    """K5's output [T, 5, 1024] against its plain version: the depth (row 0)
+    on every pixel, the four sums within K56_SUM_MAX. Returns (pixels
+    differing, largest sum error). (K6's check: ``bench_resolve.k6_line``.)"""
+    bad = int((got[:, 0] != want[:, 0]).sum())
+    return bad, (got[:, 1:] - want[:, 1:]).abs().max().item()
 
 
 def phase_binned():
@@ -454,12 +442,12 @@ def phase_binned():
     tiles = bench_micro.R * bench_micro.R // rv.TILE
     f = bench_micro.N // tiles // 512 * 512
     lp, z, pay = bench_micro.binned_tiles(gen, tiles, f)
-    bad, err = compare_tiles(rv.binned_resolve(lp, z, pay), rv.binned_resolve_reference(lp, z, pay),
-                             "K5")
+    bad, err = compare_binned(rv.binned_resolve(lp, z, pay),
+                              rv.binned_resolve_reference(lp, z, pay))
     lp2 = lp - 8 + (lp % 7 == 0).int() * 16  # some below 0 and some past 1023
     z2 = z - 0.5
-    bad2, err2 = compare_tiles(rv.binned_resolve(lp2, z2, pay),
-                               rv.binned_resolve_reference(lp2, z2, pay), "K5")
+    bad2, err2 = compare_binned(rv.binned_resolve(lp2, z2, pay),
+                                rv.binned_resolve_reference(lp2, z2, pay))
     torch.cuda.synchronize()
     log(f"[K5] {tiles} tiles x {f} pre-binned fragments: pixels whose depth differs {bad}, "
         f"max|sum err| {err:.3e}; with local pixels outside the tile and negative depths: "
@@ -481,36 +469,28 @@ def phase_binned():
 
 
 def phase_tile(f, r):
-    """K6 against its plain version at ``bench_resolve``'s shape (733,184
-    clustered fragments at 384²), then on the warp render's fragments
-    (``warp_render_inputs``, first 3 payload channels): K6 + ``tile_finish``
-    against K3 and the scatter, and the preparation and kernel of K6 and of
-    K3 timed side by side, all in device ms."""
+    """K6 against its plain version (depth and count on every pixel, sums
+    within K56_SUM_MAX, two launches bit-equal; ``bench_resolve.k6_line``)
+    and timed warm and with the L2 cache cleared before each call, beside
+    its bytes bound, on three inputs: (a) ``bench_resolve``'s shape (733,184
+    clustered fragments at 384²), (b) the warp render's fragments
+    (``warp_render_inputs``, first 3 payload channels), (c) (a) with 4,096
+    fragments stacked on each of 64 pixels (``bench_resolve.make_stacked``),
+    whose longest tile must exceed K6's staging ring. On (b) also K6 +
+    ``tile_finish`` against K3 and the scatter, and the preparation and
+    kernel of K6 and of K3 timed side by side, all in device ms."""
     import torch
 
     from ivid_tpu_torch import bench_resolve
     from ivid_tpu_torch.ops import raster, raster_tiled
     from ivid_tpu_torch.ops import resolve_variants as rv
 
+    dev = torch.device("cuda")
+    npix = bench_resolve.R ** 2
     gen = torch.Generator(device="cuda").manual_seed(5)
     fb, pay = bench_resolve.make_batch(gen, bench_resolve.N, bench_resolve.R)
-    npix = bench_resolve.R ** 2
     prepared = rv.prepare_tiles(fb.pixel, fb.depth, pay, fb.valid, npix)
-    bad, err = compare_tiles(rv.tile_resolve(*prepared), rv.tile_resolve_reference(*prepared), "K6")
-    torch.cuda.synchronize()
-    log(f"[K6] {bench_resolve.N} clustered fragments at {bench_resolve.R}², "
-        f"{npix // rv.TILE} tiles: values differing in depth or count {bad} (0), max|sum err| "
-        f"{err:.3e} (<= {K56_SUM_MAX})")
-    if bad or not err <= K56_SUM_MAX:
-        raise RuntimeError("K6 disagrees with its plain version")
-    ms, host = timed(lambda: rv.tile_resolve(*prepared), match="tile_resolve")
-    plain_ms = cuda_time_ms(lambda: rv.tile_resolve_reference(*prepared))
     prep_ms, _ = timed(lambda: rv.prepare_tiles(fb.pixel, fb.depth, pay, fb.valid, npix))
-    nbytes = tile_bytes(*prepared[:2])
-    bound = nbytes / PEAK_BYTES * 1e3
-    log(f"[K6] kernel {ms:.4f} ms device, {host:.4f} host (bound {bound:.4f} ms by bytes: "
-        f"{nbytes / 1e6:.1f} MB), prep (sort, tile search) {prep_ms:.4f} ms device, plain "
-        f"version (scatters) {plain_ms:.4f} ms")
 
     frags, pays = [f["fragments"]], [f["payload"]]
     pay3 = [f["payload"][..., :3]]
@@ -522,21 +502,38 @@ def phase_tile(f, r):
         return rv.prepare_tiles(pix, d, p, valid, wnpix)
 
     w_in = k6_prep()
-    w_out = rv.tile_resolve(*w_in)
-    w_bad, w_err = compare_tiles(w_out, rv.tile_resolve_reference(*w_in), "K6")
-    if w_bad or not w_err <= K56_SUM_MAX:
-        raise RuntimeError(f"K6 disagrees with its plain version on the warp render: {w_bad} "
-                           f"depth/count values differ, max|sum err| {w_err:.3e}")
+    sfb, spay = bench_resolve.make_stacked(torch.Generator(device="cuda").manual_seed(6),
+                                           bench_resolve.N, bench_resolve.R)
+    s_in = rv.prepare_tiles(sfb.pixel, sfb.depth, spay, sfb.valid, npix)
+    lines = {}
+    for key, tag, inp in (("a", "bench shape", prepared), ("b", "warp render", w_in),
+                          ("c", "stacked", s_in)):
+        line = lines[key] = bench_resolve.k6_line(inp, dev)  # raises on any disagreement
+        log(f"[K6] ({key}) {tag}: {line['fragments']} fragments, {line['tiles']} tiles, longest "
+            f"{line['longest_tile']} (staged chunks {line['staging']}): against its plain version "
+            f"depth and count equal, max|sum err| {line['max_sum_err']:.3e}, "
+            f"{line['max_sum_rel']:.3e} of the sum or 1 (<= {K56_SUM_MAX}; the plain version "
+            f"against itself {line['plain_self_diff']:.3e}), two launches bit-equal; kernel "
+            f"{fmt_ms(line['ms']['this'])} ms warm, {fmt_ms(line['cold_ms']['this'])} with L2 "
+            f"cleared, bound {line['bound_ms']:.4f} ms by bytes ({line['bytes'] / 1e6:.1f} MB), "
+            f"plain version {line['plain_ms']:.4f} ms")
+    # Sums of order 1 on (a) and (b): held to K56_SUM_MAX absolutely too.
+    if not max(lines["a"]["max_sum_err"], lines["b"]["max_sum_err"]) <= K56_SUM_MAX:
+        raise RuntimeError("K6's sums differ from its plain version's by more than "
+                           f"{K56_SUM_MAX} on the bench shape or the warp render")
+    if not lines["c"]["longest_tile"] > rv.TILE_STAGING:
+        raise RuntimeError("the stacked input's longest tile fits K6's staging ring")
+    log(f"[K6] prep (sort, tile search) at the bench shape {prep_ms:.4f} ms device")
+
     # K6 + tile_finish against K3 and the scatter (raises past bench_resolve.PAY_TOL).
-    got = rv.tile_finish(w_out, r, B)
+    got = rv.tile_finish(rv.tile_resolve(*w_in), r, B)
     errs = {}
     for tag, want in (("K3", raster_tiled.resolve_zbuffer_tiled(frags, pays, r, B)),
                       ("scatter", raster.resolve_zbuffer_scatter(frags, pays, r, B))):
         errs[tag] = bench_resolve.compare(got, (want[0][..., :3], want[1], want[2]), f"K6 vs {tag}")
-    log(f"[K6] warp render {B} x {r}², {wnpix // rv.TILE} tiles: against its plain version "
-        f"depth and count equal, max|sum err| {w_err:.3e}; K6 + tile_finish against K3 and the "
-        f"scatter: coverage and depth equal on every pixel, max|payload err| {errs['K3']:.3e} "
-        f"and {errs['scatter']:.3e} (<= {bench_resolve.PAY_TOL})")
+    log(f"[K6] warp render {B} x {r}², {wnpix // rv.TILE} tiles: K6 + tile_finish against K3 "
+        f"and the scatter: coverage and depth equal on every pixel, max|payload err| "
+        f"{errs['K3']:.3e} and {errs['scatter']:.3e} (<= {bench_resolve.PAY_TOL})")
     k3_in = raster_tiled.prepare(frags, pays, r, B)
     pix, _, valid, pay4 = raster._concat(frags, pays)
     keys = torch.where(valid, pix, torch.full_like(pix, wnpix))
@@ -551,24 +548,33 @@ def phase_tile(f, r):
         "sort": timed(lambda: torch.sort(keys, stable=True))[0],
         "K3 payload gather": timed(lambda: pay4[order])[0],
     }
-    w_bytes = tile_bytes(*w_in[:2])
     log(f"[K6] warp render, device ms: K6 prep (sort, tile search) {w['K6 prep']:.4f}, K6 kernel "
-        f"{w['K6 kernel']:.4f} (bound {w_bytes / PEAK_BYTES * 1e3:.4f} ms by bytes: "
-        f"{w_bytes / 1e6:.1f} MB); K3 prep (sort, run search) {w['K3 prep']:.4f}, K3 kernel "
+        f"{w['K6 kernel']:.4f}; K3 prep (sort, run search) {w['K3 prep']:.4f}, K3 kernel "
         f"{w['K3 kernel']:.4f}; of the preps, the stable sort of the keys alone "
         f"{w['sort']:.4f}, K3's run search alone ({wnpix + 1} edges) {w['K3 run search']:.4f}, "
         f"K3's gather of the [N, 4] payload rows alone {w['K3 payload gather']:.4f}")
+    a = lines["a"]
     return {
         "name": "tile_resolve", "route": "cuda", "source": "ivid_tpu_torch/csrc/tile_resolve.cu",
-        "replaces": "bench_resolve.py:136", "max_abs_err": max(err, w_err), "ms": ms,
-        "host_ms": host, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-        "library_ms": None, "prep_ms": prep_ms, "fragments": bench_resolve.N,
-        "warp": {"buffers": B, "fragments": int(w_in[1].numel()),
-                 "valid_fragments": int(f["fragments"].valid.sum()),
-                 "bound_ms": w_bytes / PEAK_BYTES * 1e3,
-                 "max_payload_err_vs_k3": errs["K3"], **{k.replace(" ", "_") + "_ms": v
-                                                            for k, v in w.items()}},
+        "replaces": "bench_resolve.py:136",
+        "max_abs_err": max(x["max_sum_err"] for x in lines.values()),
+        "ms": a["ms"]["this"][0], "cold_ms": a["cold_ms"]["this"][0], "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"], "bound_by": "bytes", "library_ms": None, "prep_ms": prep_ms,
+        "fragments": bench_resolve.N, "staging": rv.TILE_STAGING,
+        "inputs": {k: {x: v[x] for x in ("fragments", "tiles", "longest_tile", "ms", "cold_ms",
+                                         "bound_ms", "plain_ms", "max_sum_err", "max_sum_rel",
+                                         "plain_self_diff", "bit_equal")}
+                   for k, v in lines.items()},
+        "warp": {"buffers": B, "valid_fragments": int(f["fragments"].valid.sum()),
+                 "max_payload_err_vs_k3": errs["K3"],
+                 **{k.replace(" ", "_") + "_ms": v for k, v in w.items()}},
     }
+
+
+def fmt_ms(ms_list):
+    """The turns' device ms of one version, "not measured" where a reading
+    fell back to queued events."""
+    return "/".join("not measured" if x is None else f"{x:.4f}" for x in ms_list)
 
 
 def phase_benches():

@@ -297,7 +297,8 @@ class Other:
     inside ``with other:``, so the imports its functions make when called
     reach its own modules, and its kernels build from its own sources into
     its own build directory. ``rd`` and ``warp`` are its
-    ``ops.raster_dense`` and ``ops.warp``: call them inside ``with``."""
+    ``ops.raster_dense`` and ``ops.warp``, :meth:`module` any other of its
+    modules: call them inside ``with``."""
 
     def __init__(self, root):
         self.root = Path(root).resolve()
@@ -311,6 +312,11 @@ class Other:
                 sys.path.remove(str(self.root))
         if not Path(self.rd.__file__).resolve().is_relative_to(self.root):
             raise RuntimeError(f"{self.rd.__file__} is not under {self.root}")
+
+    def module(self, name):
+        """Its module ``ivid_tpu_torch.<name>`` (e.g. ``"ops.resolve_variants"``)."""
+        with self:
+            return importlib.import_module(f"{_PKG}.{name}")
 
     def __enter__(self):
         self.saved = _take_package()

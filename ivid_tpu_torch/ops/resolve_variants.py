@@ -37,6 +37,12 @@ from ivid_tpu_torch.ops.raster import flip_to_image_rows
 from ivid_tpu_torch.ops.raster_tiled import FAR
 
 TILE = 1024  # pixels per tile (the kernels' shared-memory z-buffer)
+# K6 streams a tile's range through TILE_STAGES chunks of TILE_CHUNK
+# fragments in shared memory (csrc/tile_resolve.cu: kChunk, kStages); a
+# longer range passes through them more than once.
+TILE_CHUNK = 2048
+TILE_STAGES = 2
+TILE_STAGING = TILE_CHUNK * TILE_STAGES
 
 # Kernel launches since the counters were last reset (chip_smoke.py reads
 # them): K5 (binned) and K6 (tile) launches.
@@ -179,6 +185,9 @@ def _launch_tile(bounds: torch.Tensor, lp: torch.Tensor, z: torch.Tensor,
         raise ValueError("tile_resolve needs bounds [T+1], lp [N], z [N] and payload [N, 3]")
     if not all(x.is_contiguous() for x in (bounds, lp, z, pay)):
         raise ValueError("tile_resolve's inputs must be contiguous")
+    if any(x.data_ptr() % 16 for x in (lp, z, pay)):
+        raise ValueError("tile_resolve copies lp, z and the payload in 16-byte pieces: "
+                         "they must be 16-byte aligned")
     if any(x.device != lp.device for x in (bounds, z, pay)):
         raise ValueError("tile_resolve's inputs must lie on one device")
     fn = cuda_build.function("tile_resolve", "tile_resolve_launch", _TILE_ARGS)

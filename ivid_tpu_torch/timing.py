@@ -29,6 +29,10 @@ import torch
 # ``s * SPIN_HZ`` cycles lasts at least ``s`` seconds.
 SPIN_HZ = 2.0e9
 
+# Bytes :func:`l2_cleared` writes before each call: several times the 50 MB
+# L2 cache of an H100.
+L2_CLEAR_BYTES = 256 << 20
+
 # How many :func:`device_ms` readings :func:`queued_ms` took because no
 # profiler session recorded the calls' device activity.
 fallbacks = 0
@@ -134,6 +138,22 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, match: str | None = None,
                       f"does not count: {seen}", stacklevel=2)
     fallbacks += 1
     return queued_ms(fn, reps, warmup=0)
+
+
+def l2_cleared(fn, device, nbytes: int = L2_CLEAR_BYTES):
+    """``fn`` preceded by a write of ``nbytes`` of scratch on ``device``, which
+    evicts from the L2 cache what earlier calls left there, so that ``fn``
+    reads its inputs from device memory. Time it with :func:`device_ms` and a
+    ``match`` that names ``fn``'s kernels: the write's own kernel then does
+    not count (a reading of :func:`queued_ms` would count it). The scratch
+    is the returned function's ``scratch``."""
+
+    def call():
+        call.scratch.fill_(1)
+        return fn()
+
+    call.scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return call
 
 
 def call_ms(fn, device: torch.device) -> dict:

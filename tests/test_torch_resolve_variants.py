@@ -15,6 +15,9 @@ sums may differ by 1e-5 (f32 sums in another order; depths rounded to 1/64
 make many ties).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -267,41 +270,203 @@ def test_tile_reference_matches_the_pallas_kernel():
     _assert_tiles_equal(got.numpy(), want, sums=[1, 2, 3])
 
 
+def _kernel_constants():
+    """K6's ``constexpr int`` constants, read from its source."""
+    src = (Path(rv.__file__).resolve().parents[1] / "csrc" / "tile_resolve.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def _combine(a, b):
+    """K6's operator on [..., 5] f32 (depth, 3 sums, count), ``a`` then
+    ``b``: the smaller depth, and the sums of the sides tied at it."""
+    m = np.fmin(a[..., 0], b[..., 0])
+    ta = (a[..., 0] == m)[..., None]
+    tb = (b[..., 0] == m)[..., None]
+    rest = np.where(ta, a[..., 1:], np.float32(0)) + np.where(tb, b[..., 1:], np.float32(0))
+    return np.concatenate([m[..., None], rest], -1).astype(np.float32)
+
+
+def _search_end(lp, s, e):
+    """Warp 0's search for the first lp >= 1024 in [s, e): 32 probes a
+    round, then one probe per lane. Returns (index, rounds)."""
+    lo, hi, rounds = s, e - 1, 0
+    while hi - lo > 31:
+        probe = lo + (hi - lo) * np.arange(1, 33) // 33
+        ge = lp[probe] >= P
+        first = int(np.argmax(ge)) if ge.any() else 32
+        if first == 32:
+            lo = int(probe[31]) + 1
+        else:
+            hi = int(probe[first])
+            if first:
+                lo = int(probe[first - 1]) + 1
+        rounds += 1
+    i = lo + np.arange(32)
+    ge = (i <= hi) & (lp[np.minimum(i, hi)] >= P)
+    return lo + int(np.argmax(ge)), rounds + 1
+
+
 def _tile_kernel_walk(bounds, lp, z, pay):
-    """K6 in numpy: the search for the first fragment that falls on no pixel,
-    run starts and ends from the neighbours' lp, then a walk of each pixel's
-    run twice."""
+    """K6 in numpy, in its order of work: per tile, the search where the range
+    ends in fragments on no pixel; the range from a 4-aligned start through
+    chunks of ``kChunk`` staged fragments, ``kItems`` per thread. Runs of
+    equal lp are segments; a pixel's result is stored once, from the total
+    of its segment. Per chunk each thread reduces its fragments in order and
+    stores the segments that start and end among them; a segment that comes
+    in from earlier threads takes its carry from an inclusive scan of the
+    threads' totals over the 32 lanes (shifts of 1, 2, 4, 8, 16), the warps
+    before in warp order and, past them, the segment left open at the
+    previous chunk's end, and is stored by the thread where it ends. Returns
+    the output and counts of what the walk met."""
+    c = _kernel_constants()
+    items, lanes, threads = c["kItems"], 32, c["kThreads"]
+    chunk, warps = threads * items, threads // 32
     tiles = len(bounds) - 1
     out = np.zeros((tiles, 5, P), np.float32)
+    seen = dict(carried=0, ended_at_chunk_end=0, open_at_range_end=0, spans_warps=0,
+                search_rounds=0, longest=0)
+    ident = np.array([np.inf, 0, 0, 0, 0], np.float32)
+
+    def store(res, p, a, where):
+        p, a = np.atleast_1d(p)[where], np.atleast_2d(a)[where]
+        ok = (p >= 0) & (p < P) & (a[:, 0] <= rv.FAR)
+        assert len(np.unique(p[ok])) == ok.sum() and not written[p[ok]].any()  # once a pixel
+        written[p[ok]] = True
+        res[p[ok]] = a[ok]
+
+    def from_before(w, open_a):
+        pre = ident
+        for u in range(w - 1, -1, -1):
+            pre = _combine(inc[u, -1], pre)
+            if f[u, -1]:
+                return pre
+        return _combine(open_a, pre)
+
     for t in range(tiles):
-        s = bounds[t]
-        e = s + np.searchsorted(lp[s:bounds[t + 1]], P)
-        start, end = np.zeros(P, int), np.zeros(P, int)
-        for i in range(s, e):
-            p = lp[i]
-            if not 0 <= p < P:
-                continue
-            if i == s or lp[i - 1] != p:
-                start[p] = i
-            if i == e - 1 or lp[i + 1] != p:
-                end[p] = i + 1
-        for p in range(P):
-            zr = z[start[p]:end[p]]
-            zmin = np.float32(min(rv.FAR, zr.min())) if len(zr) else np.float32(rv.FAR)
-            win = zr <= zmin
-            out[t, 0, p] = zmin
-            out[t, 1:4, p] = pay[start[p]:end[p]][win].sum(0)
-            out[t, 4, p] = win.sum()
-    return out
+        s, e = int(bounds[t]), int(bounds[t + 1])
+        end = e
+        if e > s and lp[e - 1] >= P:
+            end, rounds = _search_end(lp, s, e)
+            seen["search_rounds"] = max(seen["search_rounds"], rounds)
+        seen["longest"] = max(seen["longest"], end - s)
+        res = np.zeros((P, 5), np.float32)
+        res[:, 0] = rv.FAR
+        written = np.zeros(P, bool)
+        base = s & ~3
+        nchunks = -(-(end - base) // chunk) if end > s else 0
+        open_key, open_a = -1, ident
+        for j in range(nchunks):
+            g = base + j * chunk + np.arange(chunk)
+            inside = (g >= s) & (g < end)
+            gi = np.clip(g, 0, len(lp) - 1)
+            key = np.where(inside, lp[gi], -1)
+            val = np.zeros((chunk, 5), np.float32)
+            val[:, 0], val[:, 1:4], val[:, 4] = z[gi], pay[gi], 1
+            val[~inside] = ident
+            head = key != np.concatenate([[open_key], key[:-1]])
+            tail = key != np.concatenate([key[1:], key[-1:]])  # the last stays open
+            if head[0]:
+                store(res, open_key, open_a, np.array([True]))
+                seen["ended_at_chunk_end"] += int(0 <= open_key < P)
+            key_t, val_t = key.reshape(threads, items), val.reshape(threads, items, 5)
+            head_t, tail_t = head.reshape(threads, items), tail.reshape(threads, items)
+            # Each thread in order: the lead (before its first head), the run
+            # since its last head, and the segments that end after a head.
+            run = np.broadcast_to(ident, (threads, 5)).copy()
+            lead = run.copy()
+            has_head = np.zeros(threads, bool)
+            for k in range(items):
+                h = head_t[:, k]
+                lead = np.where((h & ~has_head)[:, None], run, lead)
+                run = np.where(h[:, None], val_t[:, k], _combine(run, val_t[:, k]))
+                has_head |= h
+                store(res, key_t[:, k], run, tail_t[:, k] & has_head)
+            lead = np.where(has_head[:, None], lead, run)
+            # Inclusive segmented scan of the threads' totals over each warp.
+            f = has_head.reshape(warps, lanes)
+            inc = run.reshape(warps, lanes, 5)
+            for d in (1, 2, 4, 8, 16):
+                o = np.concatenate([np.broadcast_to(ident, (warps, d, 5)), inc[:, :-d]], 1)
+                of = np.concatenate([np.zeros((warps, d), bool), f[:, :-d]], 1)
+                inc = np.where(f[..., None], inc, _combine(o, inc))
+                f = f | of
+            carry = np.concatenate([np.broadcast_to(ident, (warps, 1, 5)), inc[:, :-1]], 1)
+            cf = np.concatenate([np.zeros((warps, 1), bool), f[:, :-1]], 1)
+            for w in range(warps):
+                carry[w] = np.where(cf[w, :, None], carry[w], _combine(from_before(w, open_a),
+                                                                      carry[w]))
+            ends_here = ~head_t[:, 0] & (has_head | tail_t[:, -1])
+            store(res, key_t[:, 0], _combine(carry.reshape(threads, 5), lead), ends_here)
+            last = inc[-1, -1] if f[-1, -1] else _combine(from_before(warps - 1, open_a),
+                                                          inc[-1, -1])
+            open_key, open_a = key[-1], last
+            seen["spans_warps"] += int(np.sum(~head[::lanes * items] & inside[::lanes * items]))
+            if inside[-1] and j + 1 < nchunks and key[-1] == lp[g[-1] + 1]:
+                seen["carried"] += 1
+        if nchunks:
+            store(res, open_key, open_a, np.array([True]))
+            seen["open_at_range_end"] += int(0 <= open_key < P)
+        out[t] = res.T
+    return out, seen
 
 
-def test_tile_kernel_walk_matches_the_reference():
-    f, npix = _fragments(3, buffers=2)
+def _stacked(seed, runs, tile_fill=(0, 0)):
+    """``_fragments(seed, buffers=2)`` plus, for each ``(pixel, n)`` of
+    ``runs``, ``n`` fragments on that pixel at 8 depth levels (exact ties),
+    and ``tile_fill = (tile, n)``: n more spread over the lower half of that
+    tile."""
+    f, npix = _fragments(seed, buffers=2)
+    rng = np.random.default_rng(seed + 100)
+    tile, n_fill = tile_fill
+    pix = np.concatenate([np.full(n, p) for p, n in runs]
+                         + [tile * P + rng.integers(0, P // 2, n_fill)])
+    m, n_runs = len(pix), sum(n for _, n in runs)
+    depth = np.concatenate([rng.choice(np.linspace(0.1, 0.8, 8), n_runs),
+                            np.round(rng.uniform(0, 1, n_fill) * 64) / 64]).astype(np.float32)
+    return dict(pixel=np.concatenate([f["pixel"], pix]), depth=np.concatenate([f["depth"], depth]),
+                valid=np.concatenate([f["valid"], np.ones(m, bool)]),
+                payload=np.concatenate([f["payload"],
+                                        rng.uniform(-1, 1, (m, 3)).astype(np.float32)])), npix
+
+
+def _walk_case(name):
+    if name == "clustered":
+        return _fragments(3, buffers=2)
+    if name == "stacked pixel":  # one pixel's run longer than a chunk
+        return _stacked(3, [(5 * P + 77, rv.TILE_CHUNK + 500)])
+    if name == "range over the staging budget":
+        return _stacked(3, [(2 * P + 5, 400)], tile_fill=(2, rv.TILE_STAGING))
+    # Pixel 3's run ends exactly at the end of tile 0's first chunk, and tile
+    # 2's range (one pixel) at the end of its only chunk.
+    f, _ = _fragments(3, buffers=2)
+    n1 = rv.TILE_CHUNK - int(np.sum(f["valid"] & (f["pixel"] <= 3)))
+    s2 = int(np.sum(f["valid"] & (f["pixel"] < 2 * P))) + n1
+    return _stacked(3, [(3, n1), (2 * P + 10, rv.TILE_CHUNK - s2 % 4)])
+
+
+@pytest.mark.parametrize("case", ["clustered", "stacked pixel", "range over the staging budget",
+                                  "segment ending at a chunk's end"])
+def test_tile_kernel_walk_matches_the_reference(case):
+    f, npix = _walk_case(case)
     bounds, lp, z, pay = _port_prep(f, npix)
     assert int(bounds[-1]) == len(f["depth"]) and int(lp[-1]) == P  # invalid ones last, lp P
     assert torch.isfinite(pay).all()
-    got = _tile_kernel_walk(bounds.numpy(), lp.numpy(), z.numpy(), pay.numpy())
-    _assert_tiles_equal(got, rv.tile_resolve_reference(bounds, lp, z, pay).numpy(), sums=[1, 2, 3])
+    got, seen = _tile_kernel_walk(bounds.numpy(), lp.numpy(), z.numpy(), pay.numpy())
+    want = rv.tile_resolve_reference(bounds, lp, z, pay).numpy()
+    assert seen["search_rounds"] >= 2 and seen["spans_warps"] >= 1  # the last tile's search
+    if case in ("stacked pixel", "range over the staging budget"):
+        assert seen["carried"] >= 1 and (want[:, 4] > 1).any()  # ties carried across chunks
+    if case == "range over the staging budget":
+        assert seen["longest"] > rv.TILE_STAGING
+    if case == "segment ending at a chunk's end":
+        assert seen["ended_at_chunk_end"] >= 1 and seen["open_at_range_end"] >= 1
+    _assert_tiles_equal(got, want, sums=[1, 2, 3])
+
+
+def test_tile_kernel_constants_match_the_source():
+    c = _kernel_constants()
+    assert c["kThreads"] * c["kItems"] == rv.TILE_CHUNK and c["kStages"] == rv.TILE_STAGES
+    assert c["kP"] == P and c["kItems"] % 4 == 0  # lp read as int4
 
 
 @pytest.mark.parametrize("buffers", [1, 3])
@@ -349,13 +514,36 @@ def test_prepare_and_finish_refuse_what_the_tiles_cannot_take():
         rv.tile_finish(torch.zeros(4, 5, P), 64, num_buffers=2)
 
 
-def test_bench_resolve_runs_on_the_cpu(capsys):
-    res = bench_resolve.main(["--device", "cpu", "--n", "6144", "--r", "64", "--buffers", "2"])
+@pytest.mark.parametrize("stack", [False, True])
+def test_bench_resolve_runs_on_the_cpu(capsys, stack):
+    argv = ["--device", "cpu", "--n", "6144", "--r", "64", "--buffers", "2"]
+    if stack:  # 8 tiles: 8 stacked pixels, each beside this checkout's K6 as the other
+        argv += ["--stack", "--other", str(Path(__file__).resolve().parents[1])]
+    res = bench_resolve.main(argv)
     names = [row["name"] for row in res["rows"]]
     assert "prototype kernel K6" in names and "resolve_zbuffer_scatter" in names
     assert all("cpu_ms" in row and "ms" not in row for row in res["rows"])
     assert res["max_payload_err"]["prototype"] <= SUM_TOL
+    k6 = res["k6"]
+    assert k6["bit_equal"] and k6["max_sum_err"] <= SUM_TOL and "ms" not in k6
+    assert k6["max_sum_rel"] <= k6["max_sum_err"] and k6["plain_self_diff"] == 0.0
+    if stack:
+        assert k6["fragments"] == 6144 + 8 * bench_resolve.STACK_PER_PIXEL
+        assert k6["longest_tile"] > max(bench_resolve.STACK_PER_PIXEL, rv.TILE_STAGING)
+        assert set(k6["cpu_ms"]) == {"this", "other"}
+        assert k6["vs_other"] == {"depth_count_differ": 0, "max_sum_diff": 0.0, "max_sum_rel": 0.0}
     assert "prototype kernel K6" in capsys.readouterr().out
+
+
+def test_stacked_fragments_stack_ties_on_one_pixel_per_tile():
+    gen = torch.Generator().manual_seed(0)
+    fb, pay = bench_resolve.make_stacked(gen, 1000, 64, buffers=2, pixels=5, per_pixel=300)
+    extra = fb.pixel[1000:]
+    assert fb.pixel.shape == (2500,) and pay.shape == (2500, 3) and bool(fb.valid.all())
+    assert len(torch.unique(extra)) == 5 and len(torch.unique(extra // P)) == 5
+    assert len(torch.unique(fb.depth[1000:])) <= bench_resolve.STACK_LEVELS
+    bounds, lp, z, p = rv.prepare_tiles(fb.pixel, fb.depth, pay, fb.valid, 2 * 64 * 64)
+    assert bench_resolve.tile_bytes(bounds, lp) == 9 * 4 + 2500 * 20 + 8 * 5 * P * 4
 
 
 def test_bench_micro_runs_on_the_cpu():

@@ -120,3 +120,11 @@ def test_queued_ms_raises_when_the_spin_never_covers_the_calls(monkeypatch):
     with pytest.raises(timing.NotQueued, match="could not be queued"):
         timing.queued_ms(lambda: None, reps=10)
     assert len(spins) == 3 and spins[2] == pytest.approx(16 * spins[0], rel=1e-6)
+
+
+def test_l2_cleared_writes_its_scratch_before_each_call():
+    calls = []
+    fn = timing.l2_cleared(lambda: calls.append(1) or len(calls), "cpu", nbytes=4096)
+    assert fn.scratch.numel() == 4096 and not calls
+    fn.scratch.zero_()
+    assert fn() == 1 and bool((fn.scratch == 1).all()) and fn() == 2
