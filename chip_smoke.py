@@ -13,8 +13,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    scaled_dot_product_attention on the unpacked layout (each also by the
    profiler's fallback, calls queued behind a spin kernel, as a
    cross-check of the two device-time readings); then the same checks
-   at the SR cascade's shapes [2, 4096, 768] (T=4096) and [2, 1024, 1152]
-   (6 heads);
+   at the SR cascade's sampling shapes [4, 4096, 768] (T=4096) and
+   [4, 1024, 1152] (6 heads);
 3. K2 (the binned dense raster: bins, then one block per 16x16 tile)
    against its plain version on live aggregation slots, 128² seeded RGBD
    meshes rendered at r=384 from an orbit view, at 4 slots and at 26 (the
@@ -37,7 +37,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``ivid_tpu_torch.bench_micro.main`` at their defaults;
 6. K4 (packed attention backward) against autograd of the plain version
    and against its plain formula form at the training shape [8, 1024, 768],
-   4 heads, and at the SR shapes, bf16 and f32;
+   4 heads, and at the SR trainer's shapes [2, 4096, 768] and
+   [2, 1024, 1152], bf16 and f32;
 6b. K1 f32 and K4 f32 (split-TF32 tensor-core products) at every shape the
    paths give them: the sampling, training and SR shapes, the flagship
    1000-class model's [20, 1024, 1536] and [16, 1024, 1536] (8 heads), a
@@ -47,9 +48,14 @@ Phases, each printing its own lines; any failure exits non-zero:
 7. the full-width single-category UNet (random seeded weights, batch 2) on
    the card with K1 in f32 against the same weights on the CPU plain path;
    then the flagship 1000-class f32 UNet the same way (batch 2 with
-   classes, K1 f32 at its five sites);
+   classes, K1 f32 at its five sites); then the full-width SR UNet
+   (``rgbd_imagenet_adm_256_128_small_sr.json``, 256², batch 1 with a
+   class) in f32 and with its bf16 torso, its K1 sites counted from the
+   model;
 8. a small 3-view sampling chain (32² f32 UNets, K1 and K2 on its path) on
-   the card against the same weights and noise on the CPU plain path;
+   the card against the same weights and noise on the CPU plain path; and a
+   small SR chain (16² -> 32² SuperResCFG, 5 guided DDIM steps) the same
+   way;
 9. a small training chain (32² f32 cond UNet, InpaintTrainer, batch 2, 3
    AdamW steps, K1/K4/K3/K2 on its path) on the card against the CPU plain
    path with the same weights and draws;
@@ -64,15 +70,20 @@ Phases, each printing its own lines; any failure exits non-zero:
     kernel time and idle share per step, and the top kernels;
 13. the flagship pair through ``sample.main`` (random viewset, batch 2, the
     uncond sampler cut to 50 strided DDIM steps, cond DDIM 50), with the
-    launch counts and the stage ms;
+    launch counts and the stage ms; then the SR cascade over its two scenes
+    through ``ivid_tpu_torch.sr.main`` (the full-width SR model, 50 guided
+    DDIM steps, ``--save_scenes``; the scenes it writes reloaded);
 14. the flagship uncond config through ``train.main`` (BasicTrainer, CFG,
     f32, batch 16, SyntheticRGBD with 1000 classes, 3 AdamW steps), with
-    the peak memory;
+    the peak memory; then the SR config the same way (SuperResTrainer,
+    batch 4 in 2 micro-batches, SyntheticRGBDSR 256/128, finetuned from a
+    4-input checkpoint written by the phase);
 15. the model-level A/B (``ivid_tpu_torch.bench_unet``): the flagship
     uncond step at batch 10 and its training step at 16, with the attention
     sites on K1/K4 f32, the plain version and SDPA, in turns.
 
-Each main path (the benches of 5, and 10, 11, 13, 14, 15) runs with every launch
+Each main path (the benches of 5, and 10, 11, 13, 14, 15, the SR runs of 13
+and 14) runs with every launch
 counter set to 0 just before it and read just after. Then one JSON line
 with every kernel's numbers, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -100,6 +111,7 @@ UNCOND_CFG = os.path.join(ROOT, "configs", "rgbd_singlecategory_adm_128_small.js
 COND_CFG = os.path.join(ROOT, "configs", "rgbd_singlecategory_adm_128_small_cond.json")
 FLAGSHIP_UNCOND = os.path.join(ROOT, "configs", "rgbd_imagenet_adm_128_large_cfg.json")
 FLAGSHIP_COND = os.path.join(ROOT, "configs", "rgbd_imagenet_adm_128_large_cond.json")
+SR_CFG = os.path.join(ROOT, "configs", "rgbd_imagenet_adm_256_128_small_sr.json")
 
 # Tolerances (and why):
 # K1 bf16 vs the plain version in f32 on the same bf16 inputs: the kernel
@@ -143,6 +155,11 @@ K56_SUM_MAX = 1e-5
 # edges; AdamW steps of ~1e-4 per element may flip sign where a gradient is
 # ~0, which moves the parameters by < 1e-5 relative L2.
 TRAIN_LOSS_REL, TRAIN_PARAM_REL = 1e-3, 1e-5
+# The SR UNet with its bf16 torso on the card vs the f32 CPU plain path: the
+# torso's bf16 rounding (``[SR unet]`` prints the same gap on the CPU, bf16
+# torso against f32: 1.3e-2 relative L2 at full width), with room for
+# cuDNN's other sum order.
+SR_BF16_REL = 5e-2
 
 # The card's memory rate (NVIDIA H100 SXM data sheet) for the bytes bounds;
 # the attention bounds take their peaks from ivid_tpu_torch.bench_attention.
@@ -886,7 +903,7 @@ def phase_flagship_pipeline(steps_uncond=50):
             and counts["K1"] > counts["K1 f32"] and counts["K2"] >= 1
             and counts["K4"] == counts["K3"] == counts["K5"] == counts["K6"] == 0):
         raise RuntimeError("the flagship pipeline run failed its checks")
-    return counts
+    return counts, result["output_dir"]
 
 
 def phase_flagship_train(steps=3):
@@ -966,6 +983,330 @@ def phase_flagship_ab(reps=2):
             and counts["K1 f32"] == counts["K1"] and counts["K4 f32"] == counts["K4"]):
         raise RuntimeError(f"the A/B's kernel turns missed a kernel: {counts}")
     return lines
+
+
+def kernel_sites(model, run):
+    """The attention sites of ``model`` that went through K1 while ``run()``
+    ran, counted from the model's own blocks (``AttentionBlock.uses_kernel``
+    of each block's input)."""
+    from ivid_tpu_torch.models.adm import AttentionBlock
+
+    sites = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: sites.append(mod.uses_kernel(args[0].shape[2] * args[0].shape[3])))
+        for m in model.modules() if isinstance(m, AttentionBlock)]
+    try:
+        out = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, sum(sites), len(sites)
+
+
+def phase_sr_unet():
+    """The full-width SR UNet (``rgbd_imagenet_adm_256_128_small_sr.json``,
+    256², 8 inputs, 1000 classes; seeded weights), batch 1 with a class, on
+    the card against the same weights on the CPU plain path: in f32 (TF32
+    off) to ``UNET_REL``, and with its bf16 torso to ``SR_BF16_REL``. Returns
+    the number of K1 sites per forward, counted from the model."""
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch.config import Config, build_backbone
+    from ivid_tpu_torch.models.adm import randomize_parameters
+    from ivid_tpu_torch.ops import attention
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.load(SR_CFG)
+    cpu_model = randomize_parameters(build_backbone(cfg, dtype=torch.float32), seed=0).eval()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((1, 256, 256, 8)).astype(np.float32))
+    t, classes = torch.tensor([500]), torch.tensor([7])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu_model(x, t, classes)
+        cpu_s = time.perf_counter() - t0
+        # The bf16 torso's own gap on the CPU, the scale of SR_BF16_REL.
+        cpu16 = build_backbone(cfg)
+        cpu16.load_state_dict(cpu_model.state_dict())
+        cpu_rel16 = ((cpu16.eval()(x, t, classes) - want).norm() / want.norm()).item()
+        del cpu16
+    res = {}
+    for name, dtype in (("f32", torch.float32), ("bf16 torso", None)):
+        gpu_model = build_backbone(cfg, dtype=dtype)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        gpu_model.to("cuda").eval()
+        before = attention.launches, attention.f32_launches
+        with torch.no_grad():
+            got, sites, blocks = kernel_sites(
+                gpu_model, lambda: gpu_model(x.cuda(), t.cuda(), classes.cuda()).cpu())
+        res[name] = (((got - want).norm() / want.norm()).item(), bool(torch.isfinite(got).all()),
+                     attention.launches - before[0], attention.f32_launches - before[1])
+        del gpu_model
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    (rel32, fin32, k1_32, f32_32), (rel16, fin16, k1_16, f32_16) = res["f32"], res["bf16 torso"]
+    log(f"[SR unet] {os.path.basename(SR_CFG)} ({n_params} parameters), 256², batch 1, class 7, "
+        f"vs the CPU plain path in f32 ({cpu_s:.1f} s): f32 on the card rel L2 {rel32:.3e} (<= "
+        f"{UNET_REL}), bf16 torso rel L2 {rel16:.3e} (<= {SR_BF16_REL}; the bf16 torso on the "
+        f"CPU: {cpu_rel16:.3e}); output std "
+        f"{want.std().item():.3f}; finite {fin32 and fin16}; {blocks} attention blocks, {sites} "
+        f"through K1 (T >= 512): K1 launches f32 {k1_32} (K1 f32 {f32_32}), bf16 {k1_16} "
+        f"(K1 f32 {f32_16})")
+    if not (rel32 <= UNET_REL and rel16 <= SR_BF16_REL and fin32 and fin16 and sites > 0
+            and k1_32 == f32_32 == sites and k1_16 == sites and f32_16 == 0):
+        raise RuntimeError("the SR UNet on the card disagrees with the CPU plain path")
+    torch.backends.cudnn.allow_tf32 = True
+    return sites
+
+
+def phase_sr_chain(device="cuda"):
+    """A small SR chain (32² f32 SuperResCFG UNet with 10 classes, K1 at its
+    32² sites; conditions 16² SyntheticRGBDSR items; 5 guided DDIM steps) on
+    ``device`` against the same weights and noise on the CPU plain path."""
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch.data import SyntheticRGBDSR
+    from ivid_tpu_torch.diffusion import samplers
+    from ivid_tpu_torch.diffusion.frameworks import build_framework
+    from ivid_tpu_torch.host_noise import HostNoise
+    from ivid_tpu_torch.models import adm
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backbone = dict(
+        image_size=32, in_channels=8, out_channels=4, model_channels=64, num_res_blocks=1,
+        channel_mult=[1, 2], attention_resolutions=[32, 16], num_groups=32, num_heads=None,
+        num_head_channels=64, num_classes=10, has_null_class=True, dropout=0.0, use_fp16=False,
+    )
+    weights = adm.randomize_parameters(adm.build_adm_unet(backbone), seed=4).state_dict()
+    data = SyntheticRGBDSR(image_size=32, image_size_lr=16, length=4, normalize=True,
+                           normalize_depth=True, prepocess_depth="z_buffer")
+    y = torch.from_numpy(np.stack([data[i]["y"] for i in range(2)]))
+    classes = torch.tensor([1, 4])
+
+    def run(device):
+        model = adm.build_adm_unet(backbone)
+        model.load_state_dict(weights)
+        fw = build_framework("SuperResCFG", model.to(device).eval(),
+                             {"timesteps": 100, "beta_schedule": "linear", "p_uncond": 0.1},
+                             device=device)
+        out, sites, _ = kernel_sites(model, lambda: samplers.ddim_sample(
+            fw, HostNoise(5, device), num=2, image_size=32,
+            cond={"y": y.to(device), "classes": classes.to(device)}, guidance=3.0,
+            steps=5)["samples"].cpu().numpy())
+        return out, sites
+
+    before = read_counts()
+    got, sites = run(torch.device(device))
+    k1 = read_counts()["K1"] - before["K1"]
+    want, _ = run(torch.device("cpu"))
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    log(f"[SR chain] SuperResCFG 16² -> 32², f32, batch 2, classes {classes.tolist()}, 5 guided "
+        f"DDIM steps: card (K1 {k1} launches, {sites} sites counted from the model) vs CPU plain "
+        f"path: rel L2 {rel:.3e} (<= {CHAIN_REL}); finite {bool(np.isfinite(got).all())}")
+    if not (rel <= CHAIN_REL and np.isfinite(got).all() and k1 == sites > 0):
+        raise RuntimeError("the SR chain on the card disagrees with the CPU plain path")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_sr(scene_dir, sites, steps=50):
+    """``ivid_tpu_torch.sr.main`` over the scenes ``scene_dir`` holds (the
+    flagship pipeline's: 2 scenes of 2 views): the full-width SR model with
+    seeded weights, ``steps`` guided DDIM steps, guidance 3, classes from the
+    file names, ``--save_scenes``. ``sites`` is the model's K1 sites per
+    forward (``phase_sr_unet``)."""
+    import numpy as np
+
+    from ivid_tpu_torch import sr
+    from ivid_tpu_torch.inference.scene_io import load_scene
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sr_")
+    argv = ["--config_sr", SR_CFG, "--ckpt_sr", "random", "--scene_dir", scene_dir,
+            "--output_dir", out_dir, "--steps", str(steps), "--guidance", "3",
+            "--classes", "mod", "--save_scenes", "--device", "cuda"]
+    reset_counts()
+    t0 = time.perf_counter()
+    result = sr.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    samples = result["samples"]
+    n_views = sum(len(s) for s in samples)
+    chunks = len(samples)  # every scene's views fit one --batchsize chunk
+    pngs = sorted(os.listdir(os.path.join(out_dir, "results_sr")))
+    reloaded = []
+    for name in sorted(os.listdir(os.path.join(out_dir, "scenes_sr"))):
+        meshes, colors = load_scene(os.path.join(out_dir, "scenes_sr", name), device="cuda")
+        reloaded.append([(tuple(c.shape), tuple(m.depth.shape)) for m, c in zip(meshes, colors)])
+    st = result["stage_ms"]
+    log(f"[SR] sr.main, {os.path.basename(SR_CFG)}, seeded weights, {len(samples)} scenes of "
+        f"the flagship pipeline, {n_views} views, DDIM {steps} guided steps (guidance 3, CFG "
+        f"batch 2 x views): wall {wall:.2f} s, {n_views / wall:.3f} SR views/s; stages (CUDA "
+        f"events) " + ", ".join(f"{k} {v:.1f} ms" for k, v in st.items()))
+    log(f"[SR] samples {[s.shape for s in samples]} finite "
+        f"{all(np.isfinite(s).all() for s in samples)}; results_sr {pngs}; scenes_sr reloaded "
+        f"(color, depth shapes) {reloaded}; launches {counts} (K1 {sites} sites x {steps} steps "
+        f"x {chunks} chunks = {sites * steps * chunks})")
+    if not (len(samples) == 2 and all(s.shape == (2, 256, 256, 4) and np.isfinite(s).all()
+                                      for s in samples)
+            and len(pngs) == 2
+            and reloaded == [[((256, 256, 3), (256, 256, 1))] * 2] * 2
+            and counts["K1"] == sites * steps * chunks and counts["K1 f32"] == 0
+            and all(counts[k] == 0 for k in ("K2", "K2 bins", "K3", "K4", "K5", "K6"))):
+        raise RuntimeError("the SR run failed its checks")
+    profile_sr_step()
+    return counts
+
+
+def profile_sr_step(views=2, calls=2):
+    """Where one guided SR sampling step goes (``model_inference`` with CFG
+    over ``views`` views: a forward at batch ``2 * views``, as ``[SR]`` runs
+    it): CUDA events over 5 steps, then ``calls`` steps under torch.profiler
+    for the device's kernel time, its idle share and the top kernels."""
+    import torch
+
+    from ivid_tpu_torch import timing
+    from ivid_tpu_torch.config import Config
+    from ivid_tpu_torch.sample import build_model
+
+    dev = torch.device("cuda")
+    fw = build_model(Config.load(SR_CFG), "random", 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((views, 256, 256, 4), generator=gen, device=dev)
+    cond = {"y": torch.randn((views, 128, 128, 4), generator=gen, device=dev),
+            "classes": torch.arange(views, device=dev)}
+    t = torch.full((views,), 500, device=dev)
+
+    @torch.no_grad()
+    def step():
+        return fw.model_inference(None, x, t, cond, 3.0)
+
+    ms = timing.host_ms(step, reps=5, warmup=2)
+    # The step's operations: what torch.utils.flop_counter counts (the
+    # convolutions and matmuls), plus K1's 4·B·H·T²·64 at each site it runs.
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ivid_tpu_torch.models.adm import AttentionBlock
+
+    k1_flops = []
+
+    def count_k1(mod, args):
+        b, _, h, w = args[0].shape
+        if mod.uses_kernel(h * w):
+            k1_flops.append(4 * b * mod.heads * (h * w) ** 2 * 64)
+
+    hooks = [m.register_forward_pre_hook(count_k1) for m in fw.model.modules()
+             if isinstance(m, AttentionBlock)]
+    counter = FlopCounterMode(display=False)
+    try:
+        with counter:
+            step()
+    finally:
+        for h in hooks:
+            h.remove()
+    tflop = (counter.get_total_flops() + sum(k1_flops)) / 1e12
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    rows = []
+    for _ in range(2):  # a session may record no device activity (timing.py)
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / calls
+        rows = timing.device_rows(prof, calls)
+        if rows:
+            break
+    if not rows:
+        log(f"[SR profile] guided step at {views} views: {tflop:.3f} TFLOP, {ms:.2f} ms (CUDA "
+            f"events); device kernel time and top kernels: not measured (no device activity "
+            f"recorded)")
+        return
+    kernel_ms = sum(r[0] for r in rows)
+    log(f"[SR profile] guided step at {views} views (forward at batch {2 * views}): {tflop:.3f} "
+        f"TFLOP ({len(k1_flops)} K1 sites), {ms:.2f} ms (CUDA events, 5 steps), "
+        f"{tflop * 1e3 / ms:.1f} TFLOP/s; profiled: {sum(r[1] for r in rows)} kernels, {kernel_ms:.2f} "
+        f"ms of device kernel time per step ({tflop * 1e3 / kernel_ms:.1f} TFLOP/s), idle share "
+        f"{1 - kernel_ms / wall:.3f} of the profiled wall ({wall:.2f} ms), "
+        f"{1 - kernel_ms / ms:.3f} of the unprofiled step")
+    for k_ms, n, name in rows[:10]:
+        log(f"[SR profile]   {k_ms:9.3f} ms  x{n:<5d} {name[:110]}")
+
+
+def phase_sr_train(sites, steps=3):
+    """``train.main`` with the SR config (SuperResTrainer, bf16 torso, batch
+    4 with ``batch_split`` 2 as the config says), its dataset section swapped
+    to SyntheticRGBDSR 256/128 with 1000 classes, finetuned from a 4-input
+    checkpoint of the same widths written here; ``steps`` AdamW steps. K1
+    (with the log-sum-exp) and K4 at ``sites`` per micro-batch."""
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch import train
+    from ivid_tpu_torch.config import Config, build_backbone
+    from ivid_tpu_torch.models.adm import randomize_parameters
+    from ivid_tpu_torch.training import checkpoint as ckpt_io
+    from ivid_tpu_torch.training.trainer import StepRecord
+
+    with open(SR_CFG) as f:
+        cfg = json.load(f)
+    args = cfg["dataset"]["args"]
+    cfg["dataset"] = {"name": "SyntheticRGBDSR", "args": {
+        "image_size": args["image_size"], "image_size_lr": args["image_size_lr"],
+        "normalize": args["normalize"], "normalize_depth": args["normalize_depth"],
+        "prepocess_depth": args["prepocess_depth"], "near": args["near"], "far": args["far"],
+        "num_classes": 1000, "length": 64}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sr_train_")
+    src_cfg = Config.load(SR_CFG)
+    src_cfg.backbone["args"]["in_channels"] = 4
+    src = randomize_parameters(build_backbone(src_cfg), seed=3).state_dict()
+    ckpt = os.path.join(tmp, "uncond_4ch.pt")
+    torch.save(src, ckpt)
+    cfg["trainer"]["args"].update(max_steps=steps, i_log=steps, i_save=10 ** 9,
+                                  i_sample=10 ** 9, sample_at_init=False, finetune_ckpt=ckpt)
+    batch, split = cfg["trainer"]["args"]["batch_size_per_gpu"], cfg["trainer"]["args"]["batch_split"]
+    path = os.path.join(tmp, os.path.basename(SR_CFG))
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    argv = ["--config", path, "--output_dir", os.path.join(tmp, "out"), "--device", "cuda"]
+    # The finetuned start, before any step: the checkpoint's weights, the
+    # padded input channels zero.
+    start = train.main(argv + ["--max_steps", "0"])
+    w = start.model.state_dict()[ckpt_io.IN_CONV].cpu()
+    padded = (w.shape[1] == 8 and torch.equal(w[:, :4], src[ckpt_io.IN_CONV])
+              and not w[:, 4:].any()
+              and all(torch.equal(v.cpu(), src[k]) for k, v in start.model.state_dict().items()
+                      if k != ckpt_io.IN_CONV))
+    del start
+    rec = StepRecord(timing=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = train.main(argv, record=rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in rec.losses]
+    step_ms = [round(m["step"], 3) for m in rec.stage_ms()]
+    finite = all(torch.isfinite(p).all() for p in tr.model.parameters())
+    moved = not tr.model.state_dict()[ckpt_io.IN_CONV][:, 4:].eq(0).all().item()
+    per_step = sites * split
+    log(f"[SR train] train.main, {os.path.basename(SR_CFG)} (SuperResTrainer, bf16 torso), "
+        f"SyntheticRGBDSR 256/128 with 1000 classes, batch {batch} (batch_split {split}), "
+        f"finetuned from a 4-input checkpoint (start: padded inputs zero, the rest the "
+        f"checkpoint's: {padded}), {steps} AdamW steps: wall {wall:.2f} s; losses "
+        f"{np.round(losses, 5).tolist()}; ms per step (CUDA events) {step_ms}; peak memory "
+        f"{peak:.2f} GiB; padded inputs trained {moved}; launches {counts} (K1 and K4 "
+        f"{per_step} per step: {sites} sites x {split} micro-batches)")
+    if not (padded and moved and np.isfinite(losses).all() and len(losses) == steps and finite
+            and counts["K1"] == counts["K4"] == per_step * steps
+            and counts["K1 f32"] == counts["K4 f32"] == 0
+            and all(counts[k] == 0 for k in ("K2", "K3", "K5", "K6"))):
+        raise RuntimeError("the SR training run failed its checks")
+    del tr
+    return counts, peak
 
 
 def phase_unet():
@@ -1325,9 +1666,10 @@ def main():
     smi = phase_device()
     k1 = phase_attention(2, 0, training=False)
     k1_train = phase_attention(8, 3, training=True)
-    # The SR cascade's shapes (T=4096; 6 heads), checked and timed in bf16.
-    k1["other_shapes"] = [phase_attention(2, 5, False, t=4096, time_f32=False),
-                          phase_attention(2, 6, False, heads=6, time_f32=False)]
+    # The SR cascade's sampling shapes (a chunk of 2 views with CFG: batch 4;
+    # T=4096 with 4 heads, T=1024 with 6), checked and timed in bf16.
+    k1["other_shapes"] = [phase_attention(4, 5, False, t=4096, time_f32=False),
+                          phase_attention(4, 6, False, heads=6, time_f32=False)]
     k2 = phase_raster()
     k3, warp_inputs, r = phase_resolve()
     skirt8, skirt1 = phase_skirt(warp_inputs, r)
@@ -1336,19 +1678,24 @@ def main():
     k5 = phase_binned()
     benches = phase_benches()
     k4 = phase_attention_backward()
+    # The SR trainer's shapes (micro-batch 2).
     k4["other_shapes"] = [phase_attention_backward(2, 4096, 4, seed=7, time_f32=False),
                           phase_attention_backward(2, 1024, 6, seed=8, time_f32=False)]
     k1_f32, k4_f32 = phase_f32_attention()
     phase_unet()
     phase_flagship_unet()
+    sr_sites = phase_sr_unet()
     phase_chain()
+    phase_sr_chain()
     phase_train_chain()
     sampling = phase_pipeline()
     training, trainer = phase_train()
     phase_train_profile(trainer)
     del trainer
-    flagship_sampling = phase_flagship_pipeline()
+    flagship_sampling, flagship_scenes = phase_flagship_pipeline()
+    sr_sampling = phase_sr(flagship_scenes, sr_sites)
     flagship_training, _ = phase_flagship_train()
+    sr_training, _ = phase_sr_train(sr_sites)
     phase_flagship_ab()
     # ``launches``: the count of the path each kernel entry's shape stands
     # for (K1 at batch 2 and K2 on grids: sampling; the other entries:
@@ -1366,6 +1713,20 @@ def main():
         entry["launches"] = path[key]
         entry["launches_by_path"] = {"flagship sampling": flagship_sampling[key],
                                      "flagship training": flagship_training[key]}
+    # The SR paths (bf16): K1 at its sampling shapes, K4 at its training
+    # shapes; every K1/K4 entry gets their counts of its own dtype.
+    for entry, key in ((k1, "K1"), (k1_train, "K1"), (k4, "K4"), (k1_f32, "K1 f32"),
+                       (k4_f32, "K4 f32")):
+        entry["launches_by_path"].update({"sr sampling": sr_sampling[key],
+                                          "sr training": sr_training[key]})
+    for entry in k1["other_shapes"]:
+        entry["launches"] = sr_sampling["K1"]
+        entry["launches_by_path"] = {"sr sampling": sr_sampling["K1"],
+                                     "sr training": sr_training["K1"]}
+    for entry in k4["other_shapes"]:
+        entry["launches"] = sr_training["K4"]
+        entry["launches_by_path"] = {"sr sampling": sr_sampling["K4"],
+                                     "sr training": sr_training["K4"]}
     # K5 and K6: the count of the bench runs, their only path.
     for entry, key in ((k5, "K5"), (k6, "K6")):
         entry["launches"] = benches[key]

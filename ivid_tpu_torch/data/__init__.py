@@ -1,10 +1,12 @@
-"""Datasets and the data loader. Only the procedural datasets are ported;
-the file-backed ones (ImageNet, SingleCategory and their SR/Warp forms) read
-image files through PIL and wait for a later slice."""
+"""Datasets and the data loader. The procedural datasets are ported
+(``SyntheticRGBD`` and its warp and super-resolution forms); the file-backed
+ones (ImageNet, SingleCategory and their SR/Warp forms) read image files
+through PIL and wait for a later slice."""
 
 from ivid_tpu_torch.data.base import (
     BaseDataset,
     SyntheticRGBD,
+    SyntheticRGBDSR,
     SyntheticRGBDWarp,
     WarpDataset,
 )
@@ -13,6 +15,7 @@ from ivid_tpu_torch.data.loader import DataLoader
 DATASETS = {
     "SyntheticRGBD": SyntheticRGBD,
     "SyntheticRGBDWarp": SyntheticRGBDWarp,
+    "SyntheticRGBDSR": SyntheticRGBDSR,
 }
 
 
@@ -26,5 +29,5 @@ def build_dataset(section: dict, data_dir: str):
     return DATASETS[name](data_dir, **section.get("args", {}))
 
 
-__all__ = ["DATASETS", "BaseDataset", "DataLoader", "SyntheticRGBD", "SyntheticRGBDWarp",
-           "WarpDataset", "build_dataset"]
+__all__ = ["DATASETS", "BaseDataset", "DataLoader", "SyntheticRGBD", "SyntheticRGBDSR",
+           "SyntheticRGBDWarp", "WarpDataset", "build_dataset"]

@@ -3,9 +3,10 @@
 Port of ``ivid_tpu/data/base.py``'s dataset classes that need no files:
 :class:`BaseDataset` holds the normalization fields, :class:`WarpDataset`
 the warp hyperparameters (the forward-backward warp and its augments run on
-the device inside the train step), and :class:`SyntheticRGBD` /
-:class:`SyntheticRGBDWarp` make procedural items from the item index. Items
-are ``{"x_0": [H, W, 4] float32}`` plus ``classes`` where labelled.
+the device inside the train step), and :class:`SyntheticRGBD`,
+:class:`SyntheticRGBDWarp` and :class:`SyntheticRGBDSR` make procedural items
+from the item index. Items are ``{"x_0": [H, W, 4] float32}`` plus
+``classes`` where labelled, and the SR items a low-resolution ``y``.
 """
 
 from __future__ import annotations
@@ -112,3 +113,19 @@ class SyntheticRGBDWarp(SyntheticRGBD, WarpDataset):
         SyntheticRGBD.__init__(self, root_path, image_size, length, num_classes, **kwargs)
         self.augments = list(augments)
         self.std = std
+
+
+class SyntheticRGBDSR(SyntheticRGBD):
+    """The procedural items at ``image_size`` with ``y``, the same item
+    subsampled by the stride ``image_size // image_size_lr``."""
+
+    def __init__(self, root_path="", image_size=256, image_size_lr=128, length=256,
+                 num_classes=None, **kwargs):
+        self.image_size_lr = image_size_lr
+        SyntheticRGBD.__init__(self, root_path, image_size, length, num_classes, **kwargs)
+
+    def getitem(self, index: int) -> dict:
+        data = SyntheticRGBD.getitem(self, index)
+        stride = self.image_size // self.image_size_lr
+        data["y"] = np.ascontiguousarray(data["x_0"][::stride, ::stride])
+        return data

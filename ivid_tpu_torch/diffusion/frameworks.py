@@ -14,6 +14,8 @@ documented keys:
 - ``mask``:     [B,H,W,1] visibility of ``y``'s depth
 - ``mask_rgb``: [B,H,W,1] visibility of ``y``'s RGB (optional)
 
+For super-resolution ``y`` is the low-resolution RGBD image [B,h,w,4].
+
 Random draws go through a noise source (:mod:`ivid_tpu_torch.diffusion.noise`).
 """
 
@@ -24,6 +26,7 @@ from typing import Dict, Optional
 import torch
 
 from ivid_tpu_torch.diffusion import schedules as sched
+from ivid_tpu_torch.ops.image import resize_bilinear
 
 Batch = Dict[str, torch.Tensor]
 
@@ -158,10 +161,22 @@ class InpaintCFG(GaussianDiffusion):
         return mse, {"loss": mse.detach(), "mse": mse.detach()}
 
 
+class SuperResCFG(ClassifierFreeGuidance):
+    """Super-resolution with CFG: the low-resolution RGBD ``y`` is upsampled
+    to the model's size (bilinear, half-pixel-centred, as
+    ``jax.image.resize``) and concatenated after ``x_t`` (8 channels)."""
+
+    def pack_inputs(self, rng, x, cond):
+        del rng
+        y_up = resize_bilinear(cond["y"], x.shape[1], x.shape[2])
+        return torch.cat([x, y_up.to(x)], dim=-1)
+
+
 FRAMEWORKS = {
     "GaussianDiffusion": GaussianDiffusion,
     "ClassifierFreeGuidance": ClassifierFreeGuidance,
     "InpaintCFG": InpaintCFG,
+    "SuperResCFG": SuperResCFG,
 }
 
 

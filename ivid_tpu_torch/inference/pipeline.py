@@ -56,7 +56,7 @@ def select_nearest_views(mvs: np.ndarray, j: int, k: int) -> np.ndarray:
     return np.ascontiguousarray(np.argsort(-sims, axis=1, kind="stable")[:, :k])
 
 
-class _StageClock:
+class StageClock:
     """Sums device time per named stage with CUDA events (CUDA only)."""
 
     def __init__(self, device: torch.device):
@@ -106,7 +106,7 @@ class ScenePipeline:
         # Like every other entry point of the port, the card unless the caller
         # names a device.
         self.device = torch.device(device) if device is not None else torch.device("cuda")
-        self._clock = _StageClock(self.device)
+        self._clock = StageClock(self.device)
 
     def stage_ms(self) -> dict:
         """Device milliseconds per stage (uncond, mesh, aggregation, cond)

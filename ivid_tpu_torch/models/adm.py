@@ -155,6 +155,11 @@ class AttentionBlock(nn.Module):
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
 
+    def uses_kernel(self, tokens: int) -> bool:
+        """Whether an input of ``tokens`` positions goes through the packed
+        kernel (the JAX package's choice: T >= 512 and 64-wide heads)."""
+        return tokens >= 512 and self.norm.num_channels // self.heads == attn_ops.HEAD_DIM
+
     def forward(self, x):
         b, c, hh, ww = x.shape
         t = hh * ww
@@ -164,7 +169,7 @@ class AttentionBlock(nn.Module):
         dt = normed.dtype
         qkv = F.linear(normed, self.qkv.weight[:, :, 0].to(dt), self.qkv.bias.to(dt)).contiguous()
         scale = float(1.0 / np.sqrt(np.sqrt(head_dim)))
-        if t >= 512 and head_dim == attn_ops.HEAD_DIM:
+        if self.uses_kernel(t):
             out = attn_ops.packed_attention(qkv, self.heads, scale)
         else:
             out = attn_ops.reference_attention(qkv, self.heads, scale)

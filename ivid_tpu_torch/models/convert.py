@@ -21,7 +21,8 @@ import torch
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+    # A copy: leaves fetched from JAX are read-only arrays.
+    return torch.from_numpy(np.array(x, np.float32, order="C"))
 
 
 def _conv2d(k):  # [kh,kw,I,O] -> [O,I,kh,kw]

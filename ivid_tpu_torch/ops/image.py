@@ -1,6 +1,7 @@
-"""Image resampling ops of the condition tail and the warp augments:
-8-bit-quantized Lanczos downsample, strided SSAA pick, coverage-threshold mask
-downsample, and the random-sigma Gaussian blur.
+"""Image resampling ops of the condition tail, the warp augments and the SR
+cascade: 8-bit-quantized Lanczos downsample, bilinear resize, strided SSAA
+pick, coverage-threshold mask downsample, and the fixed- and random-sigma
+Gaussian blurs.
 
 Port of ``ivid_tpu/ops/image.py``. Images are [..., H, W, C]."""
 
@@ -11,20 +12,29 @@ import torch
 import torch.nn.functional as F
 
 
-def _lanczos3_weights(in_size: int, out_size: int, device) -> torch.Tensor:
-    """[in, out] resampling matrix of ``jax.image.resize(method='lanczos3')``
-    (antialiased: the kernel widens by the downscale factor), computed in f32
-    as that function computes it."""
+def _lanczos3(x: torch.Tensor) -> torch.Tensor:
+    radius = 3.0
+    y = radius * torch.sin(np.pi * x) * torch.sin(np.pi * x / radius)
+    den = torch.where(x != 0, np.pi ** 2 * x ** 2, torch.ones_like(x))
+    w = torch.where(x > 1e-3, y / den, torch.ones_like(x))
+    return torch.where(x > radius, torch.zeros_like(w), w)
+
+
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x, min=0.0)
+
+
+def _resize_weights(in_size: int, out_size: int, kernel, device) -> torch.Tensor:
+    """[in, out] resampling matrix of ``jax.image.resize`` with ``kernel``
+    (antialiased: the kernel widens by the downscale factor; each output's
+    weights normalized to sum 1, so the border clamps), computed in f32 as
+    that function computes it."""
     f32 = torch.float32
     inv_scale = 1.0 / (out_size / in_size)
     kernel_scale = max(inv_scale, 1.0)
     sample_f = (torch.arange(out_size, dtype=f32) + 0.5) * inv_scale - 0.5
     x = (sample_f[None, :] - torch.arange(in_size, dtype=f32)[:, None]).abs() / kernel_scale
-    radius = 3.0
-    y = radius * torch.sin(np.pi * x) * torch.sin(np.pi * x / radius)
-    den = torch.where(x != 0, np.pi ** 2 * x ** 2, torch.ones_like(x))
-    w = torch.where(x > 1e-3, y / den, torch.ones_like(x))
-    w = torch.where(x > radius, torch.zeros_like(w), w)
+    w = kernel(x)
     total = w.sum(dim=0, keepdim=True)
     w = torch.where(
         total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
@@ -36,13 +46,24 @@ def _lanczos3_weights(in_size: int, out_size: int, device) -> torch.Tensor:
     return w.to(device)
 
 
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``jax.image.resize(img, (..., out_h, out_w, C), "bilinear")`` of an
+    [..., H, W, C] image: half-pixel-centred, the border clamped. On
+    upsampling it equals ``F.interpolate(mode="bilinear",
+    align_corners=False)``; on downsampling it is antialiased, as JAX's."""
+    wh = _resize_weights(img.shape[-3], out_h, _triangle, img.device).to(img.dtype)
+    ww = _resize_weights(img.shape[-2], out_w, _triangle, img.device).to(img.dtype)
+    out = torch.einsum("...hwc,wW->...hWc", img, ww)
+    return torch.einsum("...hWc,hH->...HWc", out, wh)
+
+
 def resize_lanczos_8bit(img: torch.Tensor, out_size: int) -> torch.Tensor:
     """``PIL.Image.fromarray(to8b(x)).resize(s, LANCZOS) / 255``: quantize to
     8 bits, Lanczos-3 resample both spatial axes, re-quantize."""
     h, w = img.shape[-3], img.shape[-2]
     img8 = torch.round(torch.clamp(img, 0.0, 1.0) * 255.0)
-    wh = _lanczos3_weights(h, out_size, img.device)
-    ww = _lanczos3_weights(w, out_size, img.device)
+    wh = _resize_weights(h, out_size, _lanczos3, img.device)
+    ww = _resize_weights(w, out_size, _lanczos3, img.device)
     out = torch.einsum("...hwc,hH,wW->...HWc", img8, wh, ww)
     return torch.round(torch.clamp(out, 0.0, 255.0)) / 255.0
 
@@ -61,6 +82,17 @@ def coverage_mask(mask: torch.Tensor, ssaa: int, threshold: float = 0.75) -> tor
     return m > threshold * ssaa * ssaa
 
 
+def _separable_blur(x: torch.Tensor, k, mode: str) -> torch.Tensor:
+    """[H, W, C] convolved with the 1-D kernel ``k`` (a sequence of weights)
+    along H, then W, padded by ``F.pad``'s ``mode``."""
+    half = len(k) // 2
+    h, w = x.shape[0], x.shape[1]
+    xp = F.pad(x.permute(2, 0, 1)[None], (half, half, half, half), mode=mode)[0]
+    xp = xp.permute(1, 2, 0)
+    xp = sum(k[i] * xp[i:i + h, :, :] for i in range(len(k)))
+    return sum(k[i] * xp[:, i:i + w, :] for i in range(len(k)))
+
+
 def gaussian_blur_random_sigma(rng, x: torch.Tensor, kernel_size: int = 3) -> torch.Tensor:
     """cv2.GaussianBlur of [H, W, C] with sigma ~ U(0, 1) + 1e-3 drawn from
     the noise source ``rng``, and cv2's default border (reflect-101: mirrored
@@ -69,9 +101,12 @@ def gaussian_blur_random_sigma(rng, x: torch.Tensor, kernel_size: int = 3) -> to
     half = kernel_size // 2
     offs = torch.arange(-half, half + 1, dtype=torch.float32, device=x.device)
     k = torch.exp(-(offs ** 2) / (2 * sigma ** 2))
-    k = k / k.sum()
-    h, w = x.shape[0], x.shape[1]
-    xp = F.pad(x.permute(2, 0, 1)[None], (half, half, half, half), mode="reflect")[0]
-    xp = xp.permute(1, 2, 0)
-    xp = sum(k[i] * xp[i:i + h, :, :] for i in range(kernel_size))
-    return sum(k[i] * xp[:, i:i + w, :] for i in range(kernel_size))
+    return _separable_blur(x, k / k.sum(), "reflect")
+
+
+def gaussian_blur(x: torch.Tensor, sigma: float, kernel_size: int = 3) -> torch.Tensor:
+    """Separable Gaussian blur of [H, W, C] with replicate (edge) padding and
+    a fixed ``sigma``."""
+    half = kernel_size // 2
+    k = np.exp(-np.arange(-half, half + 1, dtype=np.float64) ** 2 / (2 * sigma ** 2))
+    return _separable_blur(x, [float(v) for v in (k / k.sum()).astype(np.float32)], "replicate")

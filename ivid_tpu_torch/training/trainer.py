@@ -2,7 +2,7 @@
 checkpointing, logging and sample grids.
 
 Port of ``ivid_tpu/training/trainer.py`` (``BasicTrainer``,
-``InpaintTrainer``) on one device:
+``InpaintTrainer``, ``SuperResTrainer``) on one device:
 
 - Parameters stay in f32; a bf16 torso casts them per call (``models/adm.py``).
 - AdamW with optax's defaults (betas 0.9/0.999, eps 1e-8) and the config's
@@ -18,6 +18,10 @@ Port of ``ivid_tpu/training/trainer.py`` (``BasicTrainer``,
   sequence of an uninterrupted one.
 - The inpaint trainer synthesizes its warp conditioning on the device in
   every step (``training/warp_cond.py``), the warp batched over the batch.
+- The inpaint and super-resolution trainers can start from a checkpoint of a
+  model with fewer input channels (``finetune_ckpt``): its first convolution
+  is zero-padded (``checkpoint.finetune_load``), and the EMA copies start
+  from the loaded weights too (the JAX package's keep their initial values).
 """
 
 from __future__ import annotations
@@ -322,18 +326,32 @@ class BasicTrainer:
         print(f"  - EMA rates: {self.ema_rate}")
 
 
-class InpaintTrainer(BasicTrainer):
+class FinetuneMixin:
+    """Start from a checkpoint whose first convolution may have fewer input
+    channels, zero-padded to the model's."""
+
+    def finetune_from(self, finetune_ckpt: str):
+        state = ckpt_io.finetune_load(finetune_ckpt, self.model.state_dict())
+        self.model.load_state_dict(state)
+        with torch.no_grad():
+            for ema in self.ema_params:
+                for k, v in ema.items():
+                    v.copy_(self.params[k])
+        print(f"Finetuning from {finetune_ckpt}")
+
+
+class InpaintTrainer(FinetuneMixin, BasicTrainer):
     """Conditional-completion trainer with warp conditioning synthesized on
     the device in every step."""
 
     def __init__(self, framework, dataset, output_dir, *, finetune_ckpt=None, **kwargs):
-        if finetune_ckpt:
-            raise NotImplementedError("finetuning with channel padding is not ported yet")
         self.augments = tuple(getattr(dataset, "augments", ()))
         self.pose_std = float(getattr(dataset, "std", 0.15))
         self.near = float(getattr(dataset, "near", 0.5))
         self.far = float(getattr(dataset, "far", 100.0))
         super().__init__(framework, dataset, output_dir, **kwargs)
+        if finetune_ckpt:
+            self.finetune_from(finetune_ckpt)
 
     def prepare_batch(self, batch, rng):
         return self.synthesize_cond(batch, rng)
@@ -381,7 +399,42 @@ class InpaintTrainer(BasicTrainer):
             grid("mask_rgb", host(cond["mask_rgb"]), value_range=(0, 1))
 
 
+class SuperResTrainer(FinetuneMixin, BasicTrainer):
+    """Super-resolution trainer: the dataset's items carry the low-resolution
+    ``y`` that the framework (``SuperResCFG``) packs."""
+
+    def __init__(self, framework, dataset, output_dir, *, finetune_ckpt=None, **kwargs):
+        super().__init__(framework, dataset, output_dir, **kwargs)
+        if finetune_ckpt:
+            self.finetune_from(finetune_ckpt)
+
+    def sample(self, suffix: Optional[str] = None, num_samples: int = 9,
+               batch_size: int = 9):
+        """50 guided DDIM steps (guidance 3 with classes) conditioned on a
+        visualization batch's ``y``; writes the ground truth, condition and
+        sample grids of RGB and depth."""
+        if suffix is None:
+            suffix = f"step{self.step:07d}"
+        batch = self._visualization_batch(num_samples)
+        num_samples = len(next(iter(batch.values())))
+        cond = self._device_batch({k: v for k, v in batch.items() if k != "x_0"})
+        rng = self.rng.fold_in(30_000 + self.step)
+        out = samplers.ddim_sample(
+            self.framework, rng, num=num_samples, image_size=self.dataset.image_size,
+            cond=cond, guidance=3.0 if self.model.num_classes else 0.0,
+            steps=min(50, self.framework.schedule.timesteps),
+        )
+        imgs = out["samples"].cpu().numpy()
+        nrow = int(np.sqrt(num_samples))
+        d = os.path.join(self.output_dir, "samples")
+        for name, x in (("rgb_gt", batch["x_0"][..., :3]), ("rgb_cond", batch["y"][..., :3]),
+                        ("rgb", imgs[..., :3]), ("depth_gt", batch["x_0"][..., 3:]),
+                        ("depth_cond", batch["y"][..., 3:]), ("depth", imgs[..., 3:])):
+            save_image_grid(os.path.join(d, f"{name}_{suffix}.png"), x, nrow=nrow)
+
+
 TRAINERS = {
     "BasicTrainer": BasicTrainer,
     "InpaintTrainer": InpaintTrainer,
+    "SuperResTrainer": SuperResTrainer,
 }

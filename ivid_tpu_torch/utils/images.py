@@ -1,7 +1,7 @@
-"""Host-side image utilities: PNG encoding, grid montages, depth images,
-int-list parsing. Port of ``ivid_tpu/utils/images.py`` in numpy and the
-standard library alone (PNGs are written with ``zlib`` + ``struct``, so no
-image library is needed)."""
+"""Host-side image utilities: PNG encoding and decoding, grid montages, depth
+images, int-list parsing. Port of ``ivid_tpu/utils/images.py`` in numpy and
+the standard library alone (PNGs are written and read with ``zlib`` +
+``struct``, so no image library is needed)."""
 
 from __future__ import annotations
 
@@ -28,14 +28,19 @@ def to8b(x: np.ndarray) -> np.ndarray:
     return (np.clip(x, 0, 1) * 255).astype(np.uint8)
 
 
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# Samples per pixel of the 8-bit colour types: gray, RGB, gray + alpha, RGBA.
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
 def png_encode(arr: np.ndarray) -> bytes:
-    """8-bit PNG bytes of a uint8 [H, W] (gray), [H, W, 3] (RGB) or [H, W, 4]
-    (RGBA) array."""
+    """8-bit PNG bytes of a uint8 [H, W] (gray), [H, W, 2] (gray + alpha),
+    [H, W, 3] (RGB) or [H, W, 4] (RGBA) array, every row unfiltered."""
     arr = np.ascontiguousarray(arr, dtype=np.uint8)
     if arr.ndim == 2:
         arr = arr[..., None]
     h, w, c = arr.shape
-    color_type = {1: 0, 3: 2, 4: 6}[c]
+    color_type = {n: t for t, n in _PNG_CHANNELS.items()}[c]
     rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], axis=1)
 
     def chunk(tag: bytes, data: bytes) -> bytes:
@@ -43,8 +48,85 @@ def png_encode(arr: np.ndarray) -> bytes:
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+    return (PNG_SIGNATURE + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def _unfilter_serial(kind: int, raw: bytes, prior: bytes, bpp: int) -> bytearray:
+    """Undo the Average (3) or Paeth (4) filter of one row. Both predict a
+    byte from the byte ``bpp`` to its left after it was decoded, so the row
+    is decoded in order."""
+    out = bytearray(raw)
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        b = prior[i]
+        if kind == 3:
+            pred = (a + b) >> 1
+        else:
+            c = prior[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        out[i] = (out[i] + pred) & 0xFF
+    return out
+
+
+def png_decode(data: bytes) -> np.ndarray:
+    """The pixels of an 8-bit, non-interlaced PNG as uint8: [H, W] (gray),
+    [H, W, 2] (gray + alpha), [H, W, 3] (RGB) or [H, W, 4] (RGBA), as
+    ``imageio.imread`` returns them. Every row filter (0 None, 1 Sub, 2 Up,
+    3 Average, 4 Paeth) is undone byte-exactly, so a float32 map stored as
+    RGBA8 comes back bit-equal. Palette images, other bit depths, interlaced
+    images and damaged chunks raise ``ValueError``."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        (length,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if len(body) != length or zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"PNG chunk {tag!r} is truncated or fails its CRC")
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError("PNG without IHDR or IDAT")
+    w, h, depth, color_type, _, _, interlace = header
+    if depth != 8 or color_type not in _PNG_CHANNELS:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type {color_type} "
+                         "(8-bit gray, gray + alpha, RGB and RGBA are read)")
+    if interlace:
+        raise ValueError("interlaced PNGs are not read")
+    c = _PNG_CHANNELS[color_type]
+    stride = w * c
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) != h * (stride + 1):
+        raise ValueError(f"PNG data holds {len(raw)} bytes, not {h * (stride + 1)}")
+    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, line = rows[y, 0], rows[y, 1:]
+        if kind == 0:
+            out[y] = line
+        elif kind == 1:
+            # Sub adds the decoded byte to the left: a running sum per channel.
+            out[y] = (np.cumsum(line.reshape(w, c), axis=0, dtype=np.int64) & 0xFF).reshape(-1)
+        elif kind == 2:
+            out[y] = line + prior
+        elif kind in (3, 4):
+            out[y] = np.frombuffer(_unfilter_serial(kind, line.tobytes(), prior.tobytes(), c),
+                                   np.uint8)
+        else:
+            raise ValueError(f"PNG row {y} has unknown filter type {kind}")
+        prior = out[y]
+    img = out.reshape(h, w, c)
+    return img[..., 0] if c == 1 else img
 
 
 # cv2's COLORMAP_INFERNO as 256 RGB rows of uint8 (cv2.applyColorMap of

@@ -54,7 +54,7 @@ def test_loader_and_resume_match_jax():
 
 
 def test_registry_names_unported_datasets():
-    assert sorted(DATASETS) == ["SyntheticRGBD", "SyntheticRGBDWarp"]
+    assert sorted(DATASETS) == ["SyntheticRGBD", "SyntheticRGBDSR", "SyntheticRGBDWarp"]
     ds = build_dataset({"name": "SyntheticRGBDWarp", "args": dict(ARGS, augments=["blur"])}, "")
     assert ds.augments == ["blur"] and len(ds) == 10
     with pytest.raises(NotImplementedError, match="SingleCategoryWarp"):
