@@ -82,8 +82,21 @@ Phases, each printing its own lines; any failure exits non-zero:
     uncond step at batch 10 and its training step at 16, with the attention
     sites on K1/K4 f32, the plain version and SDPA, in turns.
 
+After 3, K2 at the free-view render's shapes (``[K2 640]``: 27 slots of
+128² views at 640², a ``3x9`` scene at SSAA 5; ``[K2 1280]``: 2 slots of
+256² views at 1280², an SR scene), checked and timed as in 3. After the SR
+run of 13, ``[render]``: ``ivid_tpu_torch.render.main`` at SSAA 5 over a
+seeded 27-view 128² scene (a 60-frame swing and one random pose), the
+flagship pipeline's scenes (8 frames) and the SR run's 256² scenes (4
+frames), with ms per frame by stage, frames/s and one K2 launch (with its
+bins) per frame; one frame of a 27-view 32² scene held to the CPU's.
+Then ``[eval]``: ``ivid_tpu_torch.eval.main`` on 64 fake (rendered frames
+and seeded images) and 64 real seeded 128² PNGs with ``randconv`` and with
+``inception:`` a seeded state dict, on the card and on the CPU (the metrics
+must agree), and each extractor's images/s on the card.
+
 Each main path (the benches of 5, and 10, 11, 13, 14, 15, the SR runs of 13
-and 14) runs with every launch
+and 14, the render runs) runs with every launch
 counter set to 0 just before it and read just after. Then one JSON line
 with every kernel's numbers, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -160,6 +173,17 @@ TRAIN_LOSS_REL, TRAIN_PARAM_REL = 1e-3, 1e-5
 # torso against f32: 1.3e-2 relative L2 at full width), with room for
 # cuDNN's other sum order.
 SR_BF16_REL = 5e-2
+
+# A rendered frame on the card vs the CPU (the same scene, K2 vs its plain
+# version, f32 renders, 8-bit Lanczos resize): pixels whose color or depth
+# image differs by more than one 8-bit level, at most this share (a pixel
+# centre on a view's triangle edge may fall to the other side).
+RENDER_LEVELS, RENDER_OFF_SHARE = 1, 0.01
+# Eval metrics on the card vs the CPU (f32 features, TF32 off; cuDNN's and
+# the CPU's convolutions sum in other orders): FID and KID relative (KID to
+# its mean: its spread over subsets that are the whole set is ~0); IS is
+# computed from f32 logits in f32, absolutely.
+EVAL_REL, EVAL_IS_ABS = 1e-3, 1e-4
 
 # The card's memory rate (NVIDIA H100 SXM data sheet) for the bytes bounds;
 # the attention bounds take their peaks from ivid_tpu_torch.bench_attention.
@@ -307,9 +331,10 @@ def phase_attention(b, seed, training, t=1024, heads=4, time_f32=True):
     return entry
 
 
-def k2_phase(tag, name, replaces, inp):
+def k2_phase(tag, name, replaces, inp, plain_reps=3):
     """K2 on one input (``ivid_tpu_torch.bench_raster``): checked against its
-    plain version, timed, and bounded. Returns its kernels-line entry."""
+    plain version, timed (the plain version over ``plain_reps`` calls), and
+    bounded. Returns its kernels-line entry."""
     from ivid_tpu_torch import bench_raster as br
 
     r, A = inp.r, inp.A
@@ -318,7 +343,7 @@ def k2_phase(tag, name, replaces, inp):
     st = br.check(cols, r, A)
     bound, bound_by, work = br.bound_ms(cols, r, A)
     del cols
-    t = br.measure(inp, st["listed"])
+    t = br.measure(inp, st["listed"], plain_reps=plain_reps)
     th = t["this"]
     log(f"[{tag}] {B} buffers x {r}², {work['valid_triangles']} valid triangles, covered "
         f"{st['covered']:.3f}: pixels differing from "
@@ -384,6 +409,26 @@ def phase_raster():
     entries[0]["slots"], entries[1]["slots"] = 4, 26
     entries[0]["other_shapes"] = entries[1:]
     return entries[0]
+
+
+def phase_raster_render():
+    """K2 at the free-view render's shapes (``render.main`` rasters every
+    view slot at ``s * ssaa``, SSAA 5): 27 slots of 128² views at 640² (a
+    ``3x9`` scene) and 2 slots of 256² views at 1280² (an SR scene)."""
+    import torch
+
+    from ivid_tpu_torch import bench_raster as br
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's tie sums
+    dev = torch.device("cuda")
+    out = []
+    for n, r, s in ((27, 640, 128), (2, 1280, 256)):
+        e = k2_phase(f"K2 {r}", "dense_raster", "ivid_tpu/ops/raster_dense.py:467",
+                     br.slot_input(dev, n, r=r, s=s), plain_reps=1)
+        e.update(slots=n, view_size=s, r=r)
+        out.append(e)
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_resolve():
@@ -1156,7 +1201,189 @@ def phase_sr(scene_dir, sites, steps=50):
             and all(counts[k] == 0 for k in ("K2", "K2 bins", "K3", "K4", "K5", "K6"))):
         raise RuntimeError("the SR run failed its checks")
     profile_sr_step()
-    return counts
+    return counts, out_dir
+
+
+def write_scene(root, views, s, seed=0):
+    """A seeded scene of ``views`` s² views from the ``3x9`` viewset's cameras,
+    saved with the port's ``save_scene`` as ``{root}/scenes/scene_seed00000.npz``."""
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch.inference.scene_io import save_scene
+    from ivid_tpu_torch.inference.viewsets import build_viewset
+    from ivid_tpu_torch.ops import geometry as geom
+
+    rng = np.random.default_rng(seed)
+    ii = np.linspace(0, 1, s)
+    yy, xx = np.meshgrid(ii, ii, indexing="ij")
+    meshes, colors = [], []
+    for mv in build_viewset("3x9", 1)[:views]:
+        d01 = np.clip(0.35 + 0.3 * yy + 0.04 * np.sin(xx * 9 + rng.uniform(0, 6.28))
+                      + 0.05 * np.sin(xx * 21) * np.sin(yy * 17), 0.05, 0.95)
+        depth = geom.linearize_depth(torch.from_numpy(d01.astype(np.float32)[..., None]), 0.6, 5.0)
+        meshes.append(geom.depth_to_mesh(depth, padding="frustum", modelview=torch.from_numpy(mv))
+                      .map(lambda x: x.numpy()))
+        colors.append(np.clip(0.5 + 0.4 * np.sin(xx[..., None] * rng.uniform(2, 9, 3)
+                                                  + yy[..., None] * rng.uniform(2, 9, 3)), 0, 1))
+    os.makedirs(os.path.join(root, "scenes"), exist_ok=True)
+    save_scene(os.path.join(root, "scenes", "scene_seed00000.npz"), meshes, colors)
+    return root
+
+
+def render_run(tag, scene_dir, frames, traj="swing", ssaa=5, device="cuda"):
+    """``render.main`` over ``scene_dir`` with the launch counters read
+    around it; checks the frames and the files and that K2 ran once (with
+    its bins) per frame on the card. Returns the result and the counts."""
+    import numpy as np
+
+    from ivid_tpu_torch import render
+    from ivid_tpu_torch.ops import raster_dense
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_render_")
+    argv = ["--scene_dir", scene_dir, "--output_dir", out_dir, "--frames", str(frames),
+            "--traj", traj, "--ssaa", str(ssaa), "--save_frames", "--device", device]
+    reset_counts()
+    t0 = time.perf_counter()
+    res = render.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n = res["n_frames"]
+    shapes = {k: (c.shape, d.shape) for k, (c, d) in res["frames"].items()}
+    written = sorted(os.listdir(os.path.join(out_dir, "videos" if traj == "swing" else "results")))
+    spread = {k: c.std() for k, (c, _) in res["frames"].items()}
+    per_frame = {k: v / n for k, v in res["stage_ms"].items()}
+    log(f"[render] {tag}: {n} frames at SSAA {ssaa} on {device}: wall {wall:.3f} s, "
+        f"{n / wall:.3f} frames/s; per frame (CUDA events) "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in per_frame.items())
+        + f"; frames {shapes}; written {written}; K2 {counts['K2']}, bins {counts['K2 bins']}; "
+        f"host ms waiting for the bins' length {raster_dense.sync_s * 1e3:.3f}")
+    stems = [f"{k}.png" for k in shapes] if traj == "random" else [
+        f for k in shapes for f in (k, f"{k}_depth")]
+    # A video file, or with no video library a directory of PNG frames.
+    found = all(any(stem + ext in written for ext in ("", ".mp4", ".gif")) for stem in stems)
+    if not (n > 0 and all(c == d for c, d in shapes.values())
+            and sum(c[0] for c, _ in shapes.values()) == n
+            and found and all(v > 0 for v in spread.values())
+            and (device == "cpu" or counts["K2"] == counts["K2 bins"] == n)
+            and all(counts[k] == 0 for k in ("K1", "K3", "K4", "K5", "K6"))):
+        raise RuntimeError(f"the render run {tag} failed its checks")
+    return res, counts
+
+
+def phase_render(flagship_scenes, sr_dir):
+    """``ivid_tpu_torch.render.main`` on the card at SSAA 5: a seeded 27-view
+    128² scene (27 slots at 640²) as the CLI's default 60-frame swing and
+    one random pose; the flagship pipeline's 2-view scenes, 8 frames; the
+    SR run's 256² scenes (1280²), 4 frames. Then one frame of a 27-view 32²
+    scene at SSAA 5 on the card against the CPU (the size that the CPU
+    renders in ~10 s). Returns the K2 counts of the 640² and the 1280²
+    runs, and the 128² color frames."""
+    import numpy as np
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_scene27_")
+    write_scene(root, 27, 128)
+    swing, counts = render_run("27 views of 128² (r 640), swing", root, 60)
+    render_run("27 views of 128² (r 640), random pose", root, 1, traj="random")
+    flagship = render_run("flagship pipeline's 2 scenes of 2 views (r 640), swing",
+                          flagship_scenes, 8)[0]
+    sr_scenes = tempfile.mkdtemp(prefix="chip_smoke_sr_scenes_")
+    os.symlink(os.path.join(sr_dir, "scenes_sr"), os.path.join(sr_scenes, "scenes"))
+    sr_counts = render_run("SR run's 2 scenes of 2 views of 256² (r 1280), swing", sr_scenes, 4)[1]
+
+    small = tempfile.mkdtemp(prefix="chip_smoke_scene27s_")
+    write_scene(small, 27, 32, seed=1)
+    got = render_run("27 views of 32² (r 160), card", small, 1)[0]["frames"]["scene_seed00000"]
+    t0 = time.perf_counter()
+    want = render_run("27 views of 32² (r 160), CPU", small, 1, device="cpu")[0]
+    want = want["frames"]["scene_seed00000"]
+    diff = [np.abs(g.astype(int) - w.astype(int)) for g, w in zip(got, want)]
+    share = [float((d.max(-1) > RENDER_LEVELS).mean()) for d in diff]
+    log(f"[render] one frame of 27 views of 32² at SSAA 5 (r 160), card vs CPU ({time.perf_counter() - t0:.1f} s "
+        f"on the CPU): color 8-bit levels max {int(diff[0].max())}, pixels off by more than "
+        f"{RENDER_LEVELS} level {share[0]:.4f}; depth image max {int(diff[1].max())}, pixels "
+        f"off {share[1]:.4f} (<= {RENDER_OFF_SHARE})")
+    if not max(share) <= RENDER_OFF_SHARE:
+        raise RuntimeError("the render on the card disagrees with the CPU")
+    frames = [f for res in (swing, flagship) for c, _ in res["frames"].values() for f in c]
+    return {"640": counts, "1280": sr_counts}, frames
+
+
+def eval_images(frames, n=64, s=128, seed=0):
+    """``n`` fake and ``n`` real s² uint8 images: the fakes the rendered
+    s² frames topped up with seeded smooth images, the reals seeded smooth
+    images of another seed."""
+    import numpy as np
+
+    def smooth(rng, k):
+        ii = np.linspace(0, 1, s)
+        yy, xx = np.meshgrid(ii, ii, indexing="ij")
+        f = rng.uniform(1, 12, (k, 1, 1, 3))
+        ph = rng.uniform(0, 6.28, (k, 1, 1, 3))
+        img = 0.5 + 0.35 * np.sin(xx[None, ..., None] * f + ph) * np.cos(yy[None, ..., None] * f)
+        return (np.clip(img + rng.normal(0, 0.05, img.shape), 0, 1) * 255).astype(np.uint8)
+
+    fake = [f for f in frames if f.shape == (s, s, 3)][:n]
+    fake = np.concatenate([np.stack(fake), smooth(np.random.default_rng(seed), n - len(fake))])
+    return fake, smooth(np.random.default_rng(seed + 1), n)
+
+
+def phase_eval(frames):
+    """``ivid_tpu_torch.eval.main`` on 64 fake and 64 real 128² PNGs with
+    ``randconv`` and with ``inception:`` a seeded state dict (numpy seed 0,
+    saved by ``torch.save``), on the card and on the CPU; the metrics must
+    agree. Then each extractor's images/s on the card."""
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch import eval as teval
+    from ivid_tpu_torch.evals import inception, metrics
+    from ivid_tpu_torch.utils.images import png_encode
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    fake, real = eval_images(frames)
+    for name, imgs in (("fake", fake), ("real", real)):
+        os.makedirs(os.path.join(root, name))
+        for i, img in enumerate(imgs):
+            with open(os.path.join(root, name, f"{i:03d}.png"), "wb") as f:
+                f.write(png_encode(img))
+    weights = os.path.join(root, "inception_seeded.pt")
+    torch.save(inception.seeded_state_dict(0), weights)
+    for ext in ("randconv", f"inception:{weights}"):
+        tag = ext.split(":")[0]
+        got = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            got[device] = teval.main([
+                "--real_images_dir", os.path.join(root, "real"),
+                "--fake_images_dir", os.path.join(root, "fake"),
+                "--tmp_dir", os.path.join(root, f"{tag}-{device}", "cache"), "--yes",
+                "--image_size", "128", "--extractor", ext, "--device", device])
+            log(f"[eval] {tag} on {device}: eval.main {time.perf_counter() - t0:.2f} s, {got[device]}")
+        worst = {}  # IS: absolute; FID and KID: relative (KID to its mean)
+        for k, want in got["cpu"].items():
+            if k == "feature_extractor":
+                continue
+            d = abs(got["cuda"][k] - want)
+            if not k.startswith("inception_score"):
+                d /= abs(got["cpu"]["kernel_inception_distance_mean" if "kernel" in k else k])
+            worst[k] = d
+        ok = all(np.isfinite(got["cuda"][k]) and v <= (
+            EVAL_IS_ABS if k.startswith("inception_score") else EVAL_REL) for k, v in worst.items())
+        extractor = metrics.get_extractor(ext, device="cuda")
+        images = np.concatenate([fake, real]).astype(np.float32) / 255.0
+        extractor(images[:64])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extractor(images)
+        torch.cuda.synchronize()
+        rate = len(images) / (time.perf_counter() - t0)
+        log(f"[eval] {tag}: card vs CPU, FID and KID relative (KID to its mean), IS absolute: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+            + f" (<= {EVAL_REL}; IS <= {EVAL_IS_ABS}); extractor on the card "
+            f"{rate:.1f} images/s at 128² (batch 64, {len(images)} images)")
+        if not ok:
+            raise RuntimeError(f"eval with {tag} on the card disagrees with the CPU")
 
 
 def profile_sr_step(views=2, calls=2):
@@ -1671,6 +1898,7 @@ def main():
     k1["other_shapes"] = [phase_attention(4, 5, False, t=4096, time_f32=False),
                           phase_attention(4, 6, False, heads=6, time_f32=False)]
     k2 = phase_raster()
+    k2_render = phase_raster_render()
     k3, warp_inputs, r = phase_resolve()
     skirt8, skirt1 = phase_skirt(warp_inputs, r)
     k6 = phase_tile(warp_inputs, r)
@@ -1693,7 +1921,10 @@ def main():
     phase_train_profile(trainer)
     del trainer
     flagship_sampling, flagship_scenes = phase_flagship_pipeline()
-    sr_sampling = phase_sr(flagship_scenes, sr_sites)
+    sr_sampling, sr_dir = phase_sr(flagship_scenes, sr_sites)
+    rendering, frames = phase_render(flagship_scenes, sr_dir)
+    phase_eval(frames)
+    del frames
     flagship_training, _ = phase_flagship_train()
     sr_training, _ = phase_sr_train(sr_sites)
     phase_flagship_ab()
@@ -1707,6 +1938,16 @@ def main():
         entry["launches"] = path[key]
         entry["launches_by_path"] = {"sampling": sampling[key], "training": training[key]}
     skirt1["launches"] = 0
+    # The free-view render: one K2 launch per frame, over all of a scene's
+    # slots (27 at 640² for a ``3x9`` scene, 2 at 1280² for an SR scene).
+    k2["launches_by_path"]["render"] = rendering["640"]["K2"]
+    for entry in k2["other_shapes"]:  # the 26-slot view: a ``3x9`` scene's sampling
+        entry["launches"] = sampling["K2"]
+        entry["launches_by_path"] = {"sampling": sampling["K2"]}
+    for entry in k2_render:
+        entry["launches"] = rendering[str(entry["r"])]["K2"]
+        entry["launches_by_path"] = {"render": entry["launches"], "render per frame": 1}
+    k2["other_shapes"] += k2_render
     # The f32 paths: the flagship model's sampling (K1 f32) and training (K4 f32).
     for entry, key, path in ((k1_f32, "K1 f32", flagship_sampling),
                              (k4_f32, "K4 f32", flagship_training)):

@@ -96,19 +96,19 @@ def live_slots(dev, n=4, s=128, seed=0):
     return geom.stack_meshes(meshes), target
 
 
-def slot_input(dev, n, r=384):
-    """The aggregation's raster of ``n`` live slots, as
+def slot_input(dev, n, r=384, s=128):
+    """The aggregation's raster of ``n`` live slots of s² views at r², as
     ``renderer._aggregation_view_buffers_all`` makes it."""
     from ivid_tpu_torch.ops import camera as cam
     from ivid_tpu_torch.ops import raster, renderer
 
-    meshes, target = live_slots(dev, n)
+    meshes, target = live_slots(dev, n, s)
     g = int(round(meshes.positions.shape[1] ** 0.5))
     attrs = renderer._aggregation_attrs(meshes)
     mvp = (cam.perspective(45.0, 1.0, 0.01, 200.0, device=dev) @ target).expand(n, 4, 4)
     win, w = raster.project_vertices(meshes.positions, mvp, r)
     pos = meshes.positions
-    return Input(f"{n} slots", lambda: rd.grid_cols(win, w, attrs, pos, g, 3),
+    return Input(f"{n} slots of {s}² at {r}²", lambda: rd.grid_cols(win, w, attrs, pos, g, 3),
                  lambda m: m.rasterize_grid_dense_batched(win, w, attrs, pos, g, r, discard_attr=3),
                  r, attrs.shape[-1])
 
@@ -349,7 +349,7 @@ def _call_ms(fn):
         return None
 
 
-def measure(inp: Input, listed: int, other: Other | None = None, plain=True):
+def measure(inp: Input, listed: int, other: Other | None = None, plain=True, plain_reps=3):
     """Times of this version (``this``) on one input, in device ms unless the
     key says ``host_ms`` (CUDA events). ``listed`` is the length of the bins'
     lists (from :func:`check`), given to the timed calls so that they do not
@@ -359,7 +359,8 @@ def measure(inp: Input, listed: int, other: Other | None = None, plain=True):
     wait for the lists' length. With ``other``, ``call`` is the public
     call's device work, columns included, of each version in turns (this
     version's with the lists' length given), and ``other_vs_this`` how far
-    the other's output lies from this version's."""
+    the other's output lies from this version's. ``plain_ms`` is the plain
+    version over ``plain_reps`` calls after one."""
     cols, r, A = inp.cols(), inp.r, inp.A
     last = {}  # the offsets of the last timed call, checked once the timing is done
 
@@ -399,7 +400,8 @@ def measure(inp: Input, listed: int, other: Other | None = None, plain=True):
         lambda: inp.call(rd))
     if plain:
         res["plain_ms"] = timing.host_ms(
-            lambda: rd.raster_rows_reference(rd.prep_pack(cols, r, A), r, A), reps=3, warmup=1)
+            lambda: rd.raster_rows_reference(rd.prep_pack(cols, r, A), r, A), reps=plain_reps,
+            warmup=1)
     return res
 
 

@@ -10,6 +10,7 @@ from ivid_tpu_torch.data.base import (
     SyntheticRGBDWarp,
     WarpDataset,
 )
+from ivid_tpu_torch.data.collect import collect_data
 from ivid_tpu_torch.data.loader import DataLoader
 
 DATASETS = {
@@ -30,4 +31,4 @@ def build_dataset(section: dict, data_dir: str):
 
 
 __all__ = ["DATASETS", "BaseDataset", "DataLoader", "SyntheticRGBD", "SyntheticRGBDSR",
-           "SyntheticRGBDWarp", "WarpDataset", "build_dataset"]
+           "SyntheticRGBDWarp", "WarpDataset", "build_dataset", "collect_data"]

@@ -4,12 +4,14 @@ A numpy copy of ``ivid_tpu/inference/viewsets.py`` (the port imports nothing
 of the JAX package). Mirrors the reference camera viewsets (reference: inference/sample.py:304-338):
 ``uncond`` (single canonical view), ``random`` (canonical + one sampled orbit),
 ``3x9`` (27-view yaw×pitch grid in center-out generation order), and the 3x9
-sampling-order → display-grid permutation (reference: inference/utils.py:44-55).
+sampling-order → display-grid permutation (reference: inference/utils.py:44-55),
+and the free-view render's camera paths (:func:`swing_trajectory`,
+:func:`random_trajectory`; reference: inference/render.py:42-60).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -90,3 +92,17 @@ def reorder(images: np.ndarray, order: str = "3x9") -> np.ndarray:
     if len(data) == 26:
         data.insert(0, -np.ones_like(data[0]))
     return np.stack([data[i] for i in REORDER_3X9], axis=0)
+
+
+def swing_trajectory(frames: int = 60) -> List[np.ndarray]:
+    """``frames`` poses of an orbit sweep (reference: inference/render.py:42-49)."""
+    ts = np.linspace(0, 2 * np.pi, frames)
+    return [_orbit(0.6 * np.cos(t), 0.15 * np.sin(t)) for t in ts]
+
+
+def random_trajectory(rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """One clipped random pose (reference: inference/render.py:50-60)."""
+    rng = rng or np.random.default_rng()
+    yaw = float(np.clip(0.3 * rng.standard_normal(), -0.6, 0.6))
+    pitch = float(np.clip(0.15 * rng.standard_normal(), -0.15, 0.15))
+    return _orbit(yaw, pitch)

@@ -68,3 +68,16 @@ def inverse(m: torch.Tensor) -> torch.Tensor:
 def camera_position(modelview: torch.Tensor) -> torch.Tensor:
     """World-space camera position(s) from view matrices [..., 4, 4]."""
     return inverse(modelview)[..., :3, 3]
+
+
+def orbit_modelview(yaw: float, pitch: float, radius: float = 1.0,
+                    device=None) -> torch.Tensor:
+    """A camera on a sphere of ``radius`` looking at the origin, on ``device``:
+    the viewset and trajectory parameterization."""
+    eye = torch.tensor([
+        radius * np.sin(yaw) * np.cos(pitch),
+        radius * np.sin(pitch),
+        radius * np.cos(yaw) * np.cos(pitch),
+    ], dtype=torch.float32, device=device)
+    return look_at(eye, torch.zeros(3, device=device),
+                   torch.tensor([0.0, 1.0, 0.0], device=device))

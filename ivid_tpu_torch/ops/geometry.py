@@ -151,6 +151,22 @@ def cal_depth_normal(points: torch.Tensor) -> torch.Tensor:
     return n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
 
 
+def cal_mesh_normal(positions: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Angle-weighted vertex normals [V, 3] of a mesh with ``positions``
+    [V, 3] and ``faces`` [F, 3]: each face adds its unit normal, weighted
+    by its angle at the vertex (``index_add_``, whose order of additions
+    differs from the JAX package's scatter-add by f32 rounding)."""
+    p = positions[faces]
+    norm = lambda v: v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    e0, e1, e2 = norm(p[:, 1] - p[:, 0]), norm(p[:, 2] - p[:, 1]), norm(p[:, 0] - p[:, 2])
+    fn = norm(torch.linalg.cross(e0, -e2, dim=-1))
+    angles = torch.arccos(torch.clamp(torch.stack([
+        (-e0 * e2).sum(-1), (-e0 * e1).sum(-1), (-e1 * e2).sum(-1)], dim=-1), -1.0, 1.0))
+    contrib = fn[:, None, :] * angles[:, :, None]
+    normals = torch.zeros_like(positions).index_add_(0, faces.reshape(-1), contrib.reshape(-1, 3))
+    return norm(normals)
+
+
 def depth_edge(depth: torch.Tensor, atol=0.02, rtol=0.02) -> torch.Tensor:
     """4-direction depth-edge vote over [..., H, W, 1]; True where the depth is
     NOT an edge (fewer than 3 votes)."""

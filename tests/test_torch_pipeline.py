@@ -207,6 +207,9 @@ def test_port_imports_no_jax():
         "assert 'ivid_tpu_torch.bench_resolve' in sys.modules\n"
         "assert 'ivid_tpu_torch.bench_micro' in sys.modules\n"
         "assert 'ivid_tpu_torch.bench_raster' in sys.modules\n"
+        "assert 'ivid_tpu_torch.render' in sys.modules\n"
+        "assert 'ivid_tpu_torch.eval' in sys.modules\n"
+        "assert 'ivid_tpu_torch.evals.inception' in sys.modules\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
