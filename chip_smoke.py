@@ -68,6 +68,17 @@ Phases, each printing its own lines; any failure exits non-zero:
 12. the same trainer's step (``run_step``) timed by stage with CUDA events
     over 10 more steps, then 2 steps under torch.profiler: kernels, device
     kernel time and idle share per step, and the top kernels;
+12b. ``[data files]``: a seeded folder of 64 RGB PNGs of 375x500 with npz
+    disparities read by ``SingleCategoryWarp`` at 128² and
+    ``SingleCategorySR`` 256/128 (the native resampler built with g++):
+    items/s in the main process and with 4 thread and 4 process workers,
+    each loader's batch 0 held to the items loaded one by one;
+12c. ``[train files]``: ``train.main --distributed`` at world size 1
+    (NCCL; the torchrun variables set here) on the full-width cond config
+    over that folder, batch 8, 4 process workers: 4 steps with a save at
+    the last, a resume for 2 more (the loader's cursor restored), then 2
+    steps with ``warp_host`` (the warp in the workers, on the CPU); step ms,
+    the loader's wait per step and K1, K4, K2 and K3 launches per step;
 13. the flagship pair through ``sample.main`` (random viewset, batch 2, the
     uncond sampler cut to 50 strided DDIM steps, cond DDIM 50), with the
     launch counts and the stage ms; then the SR cascade over its two scenes
@@ -95,8 +106,8 @@ and seeded images) and 64 real seeded 128² PNGs with ``randconv`` and with
 ``inception:`` a seeded state dict, on the card and on the CPU (the metrics
 must agree), and each extractor's images/s on the card.
 
-Each main path (the benches of 5, and 10, 11, 13, 14, 15, the SR runs of 13
-and 14, the render runs) runs with every launch
+Each main path (the benches of 5, and 10, 11, 12c, 13, 14, 15, the SR runs
+of 13 and 14, the render runs) runs with every launch
 counter set to 0 just before it and read just after. Then one JSON line
 with every kernel's numbers, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -125,6 +136,7 @@ COND_CFG = os.path.join(ROOT, "configs", "rgbd_singlecategory_adm_128_small_cond
 FLAGSHIP_UNCOND = os.path.join(ROOT, "configs", "rgbd_imagenet_adm_128_large_cfg.json")
 FLAGSHIP_COND = os.path.join(ROOT, "configs", "rgbd_imagenet_adm_128_large_cond.json")
 SR_CFG = os.path.join(ROOT, "configs", "rgbd_imagenet_adm_256_128_small_sr.json")
+SC_SR_CFG = os.path.join(ROOT, "configs", "rgbd_singlecategory_adm_256_128_small_sr.json")
 
 # Tolerances (and why):
 # K1 bf16 vs the plain version in f32 on the same bf16 inputs: the kernel
@@ -1884,6 +1896,167 @@ def phase_train_profile(tr, timed=10, profiled=2):
         log(f"[train-profile]   {ms:9.3f} ms  x{n:<5d} {name[:110]}")
 
 
+def write_rgbd_folder(root, n=64, h=375, w=500, seed=0):
+    """A seeded SingleCategory folder: ``n`` RGB PNGs of ``h`` x ``w`` (smooth
+    waves under noise) in ``images/`` and their disparities (float32 npz,
+    up to 20000) in ``depths/``."""
+    import numpy as np
+
+    from ivid_tpu_torch.utils.images import png_encode
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "depths"))
+    for i in range(n):
+        f, a = rng.uniform(0.004, 0.04, (2, 3)), rng.uniform(0, 2 * np.pi, (2, 3))
+        img = np.stack([127.5 + 90 * np.sin(f[0, c] * xx + a[0, c]) * np.cos(f[1, c] * yy + a[1, c])
+                        for c in range(3)], axis=-1) + rng.normal(0, 6, (h, w, 3))
+        with open(os.path.join(root, "images", f"{i:04d}.png"), "wb") as fh:
+            fh.write(png_encode(np.clip(np.round(img), 0, 255).astype(np.uint8)))
+        disp = 2000 + 15000 * yy / h + 3000 * np.sin(f[0, 0] * xx + a[0, 0])
+        np.savez(os.path.join(root, "depths", f"{i:04d}.npz"), disp.astype(np.float32))
+
+
+def phase_data_files():
+    """``[data files]``: a seeded 64-image PNG folder read by the file-backed
+    datasets of the single-category configs; items/s in the main process
+    and with 4 thread and 4 process workers, batch 0 held to the items
+    loaded one by one. Returns the folder."""
+    import numpy as np
+
+    from ivid_tpu_torch.config import Config
+    from ivid_tpu_torch.data import DataLoader, SingleCategorySR, SingleCategoryWarp, native
+
+    root = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_files_"), "data")
+    t0 = time.perf_counter()
+    write_rgbd_folder(root)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.build()
+    log(f"[data files] 64 RGB PNGs of 375x500 with npz disparities written in {write_s:.2f} s; "
+        f"native resampler built with g++ in {time.perf_counter() - t0:.2f} s; host CPUs "
+        f"{os.cpu_count()}")
+    sets = {
+        "SingleCategoryWarp 128²": SingleCategoryWarp(root, **Config.load(COND_CFG).dataset["args"]),
+        "SingleCategorySR 256/128": SingleCategorySR(root, **Config.load(SC_SR_CFG).dataset["args"]),
+    }
+    rates = {}
+    for name, ds in sets.items():
+        t0 = time.perf_counter()
+        items = [ds[i] for i in range(32)]
+        rates[name] = {"main process": 32 / (time.perf_counter() - t0)}
+        for mode in ("thread", "process"):
+            loader = DataLoader(ds, 8, num_workers=4, worker_mode=mode, seed=0)
+            it = iter(loader)
+            t0 = time.perf_counter()
+            first = next(it)
+            t1 = time.perf_counter()
+            for _ in range(15):
+                next(it)
+            rate = 15 * 8 / (time.perf_counter() - t1)
+            it.close()
+            rows = [ds[int(i)] for i in loader._epoch_indices(0)[0]]
+            same = all(np.array_equal(first["x_0"][r], item["x_0"]) for r, item in enumerate(rows))
+            if "y" in first:  # the blur's sigma is drawn in the worker; the depth is not
+                same &= all(np.array_equal(first["y"][r, ..., 3], item["y"][..., 3])
+                            for r, item in enumerate(rows))
+            rates[name][f"4 {mode} workers"] = rate
+            log(f"[data files] {name}, 4 {mode} workers: first batch of 8 after "
+                f"{(t1 - t0) * 1e3:.1f} ms, then {rate:.1f} items/s over 15 batches; batch 0 "
+                f"equal to the items loaded one by one: {same}")
+            if not same:
+                raise RuntimeError(f"{name}: the {mode} loader's batch 0 differs from its items")
+        shapes = {k: tuple(v.shape) for k, v in items[0].items()}
+        log(f"[data files] {name}: {rates[name]['main process']:.1f} items/s in the main "
+            f"process; item {shapes}")
+    return root
+
+
+def phase_train_files(root, steps=4, device="cuda"):
+    """``[train files]``: ``train.main`` with ``--distributed`` at world size
+    1 (NCCL) on the full-width cond config over the ``[data files]`` folder,
+    batch 8, 4 process workers: ``steps`` steps with a save at the last, a
+    resume for 2 more, then 2 steps with ``warp_host``. Returns the launch
+    counts of the first run."""
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch import train
+    from ivid_tpu_torch.training import checkpoint as ckpt_io
+    from ivid_tpu_torch.training.trainer import StepRecord
+
+    with open(COND_CFG) as f:
+        cfg = json.load(f)
+    cfg["trainer"]["args"].update(max_steps=steps, sample_at_init=False, i_ddpcheck=2,
+                                  i_save=steps, i_log=2, i_sample=10 ** 9)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_files_")
+    name = os.path.splitext(os.path.basename(COND_CFG))[0]
+
+    def run(tag, extra, warp_host=False):
+        cfg["trainer"]["args"]["warp_host"] = warp_host
+        os.makedirs(os.path.join(tmp, tag), exist_ok=True)
+        path = os.path.join(tmp, tag, os.path.basename(COND_CFG))
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(free_port()))
+        rec = StepRecord(timing=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        tr = train.main(["--config", path, "--data_dir", root, "--output_dir",
+                         os.path.join(tmp, "out" if tag != "host" else "out_host"),
+                         "--distributed", "--num_workers", "4", "--worker_mode", "process",
+                         "--device", device, *extra], record=rec)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        n = len(rec.losses)
+        losses = [float(x) for x in rec.losses]
+        step_ms = [round(m["step"], 2) for m in rec.stage_ms()]
+        wait_ms = [round(w * 1e3, 2) for w in rec.loader_waits]
+        log(f"[train files] {tag}: {n} steps, wall {wall:.2f} s (with set-up and the workers' "
+            f"start); ms per step (CUDA events) {step_ms}; loader wait ms per step {wait_ms}; "
+            f"losses {np.round(losses, 5).tolist()}; launches per step "
+            f"{ {k: v / n for k, v in counts.items() if v} }")
+        ok = (n > 0 and np.isfinite(losses).all() and tr.ddp is not None and tr.world == 1
+              and counts["K1"] == 5 * n and counts["K4"] == 5 * n)
+        if warp_host:
+            ok &= counts["K2"] == counts["K3"] == 0
+        else:
+            ok &= counts["K3"] == 2 * n and counts["K2"] >= n
+        if not ok:
+            raise RuntimeError(f"[train files] {tag} failed its checks: launches {counts}")
+        return tr, counts, step_ms
+
+    tr, counts, step_ms = run("first", [])
+    run_dir = os.path.join(tmp, "out", name)
+    saved = ckpt_io.load(ckpt_io.misc_path(run_dir, steps))["loader_pos"]
+    params = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    del tr
+    again, _, _ = run("resume", ["--ckpt", "latest", "--max_steps", str(steps + 2)])
+    restored = saved == [0, steps] and again._loader_obj.position == (0, steps + 2)
+    moved = any(not torch.equal(v.cpu(), params[k]) for k, v in again.model.state_dict().items())
+    del again
+    log(f"[train files] checkpoint cursor {saved} restored: {restored} (the resumed loader "
+        f"stands at (0, {steps + 2})); parameters moved after the resume: {moved}")
+    if not (restored and moved):
+        raise RuntimeError("[train files] the resume did not continue from the checkpoint")
+    _, _, host_ms = run("host", ["--max_steps", "2"], warp_host=True)
+    log(f"[train files] warp_host steps ms {host_ms} beside on-device warp steps ms {step_ms}; "
+        f"{os.cpu_count()} host CPUs, 4 process workers")
+    return counts
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
 def main():
     import torch
 
@@ -1920,6 +2093,7 @@ def main():
     training, trainer = phase_train()
     phase_train_profile(trainer)
     del trainer
+    file_training = phase_train_files(phase_data_files())
     flagship_sampling, flagship_scenes = phase_flagship_pipeline()
     sr_sampling, sr_dir = phase_sr(flagship_scenes, sr_sites)
     rendering, frames = phase_render(flagship_scenes, sr_dir)
@@ -1936,7 +2110,8 @@ def main():
                              (k2, "K2", sampling), (k3, "K3", training),
                              (skirt8, "K2", training), (k4, "K4", training)):
         entry["launches"] = path[key]
-        entry["launches_by_path"] = {"sampling": sampling[key], "training": training[key]}
+        entry["launches_by_path"] = {"sampling": sampling[key], "training": training[key],
+                                     "file training": file_training[key]}
     skirt1["launches"] = 0
     # The free-view render: one K2 launch per frame, over all of a scene's
     # slots (27 at 640² for a ``3x9`` scene, 2 at 1280² for an SR scene).

@@ -5,12 +5,15 @@ Its ``split``/``fold_in`` calls follow the key derivation of the JAX package
 (``jax.random.split`` / ``fold_in``) step for step, so an implementation that
 replays ``jax.random`` keys reproduces the JAX chain's noise exactly (the
 tests do this). A source draws ``normal``, ``uniform`` and ``randint``
-samples. The default, :class:`TorchNoise`, ignores the derivation and draws
-every sample in call order from one ``torch.Generator``.
+samples. :class:`TorchNoise` ignores the derivation and draws every sample
+in call order from one ``torch.Generator``; :class:`KeyedNoise` (the
+trainers' default) follows it, so that a source's numbers depend only on how
+it was derived, not on what was drawn before.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Sequence, Tuple
 
 import torch
@@ -55,3 +58,52 @@ class TorchNoise:
 
     def load_state_dict(self, state: dict) -> None:
         self.generator.set_state(state["generator"])
+
+
+def _derive(key: int, *path) -> int:
+    """A 63-bit key from ``key`` and the derivation ``path``."""
+    digest = hashlib.blake2b(repr((key,) + path).encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
+class KeyedNoise:
+    """Counter-based draws: a source is a 63-bit key; ``split`` and
+    ``fold_in`` derive child keys by hashing (as ``jax.random`` derives its
+    keys, with another hash), and each draw seeds a fresh ``torch.Generator``
+    on ``device`` from the key. Distinct derivations give independent
+    streams, whatever was drawn before or elsewhere: ranks and loader workers
+    that derive the same key draw the same numbers."""
+
+    def __init__(self, key: int, device=None):
+        self.key = int(key)
+        self.device = torch.device(device or "cpu")
+
+    @classmethod
+    def seeded(cls, seed: int, device=None) -> "KeyedNoise":
+        return cls(_derive(0, "seed", int(seed)), device)
+
+    def split(self, num: int = 2) -> Tuple["KeyedNoise", ...]:
+        return tuple(KeyedNoise(_derive(self.key, "split", num, i), self.device)
+                     for i in range(num))
+
+    def fold_in(self, i: int) -> "KeyedNoise":
+        return KeyedNoise(_derive(self.key, "fold_in", int(i)), self.device)
+
+    def _generator(self) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(self.key)
+
+    def normal(self, shape: Sequence[int]) -> torch.Tensor:
+        return torch.randn(tuple(shape), generator=self._generator(), device=self.device)
+
+    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        return torch.rand(tuple(shape), generator=self._generator(), device=self.device)
+
+    def randint(self, shape: Sequence[int], low: int, high: int) -> torch.Tensor:
+        return torch.randint(low, high, tuple(shape), generator=self._generator(),
+                             device=self.device)
+
+    def state_dict(self) -> dict:
+        return {"key": self.key}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.key = int(state["key"])

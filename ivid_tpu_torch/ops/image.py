@@ -104,9 +104,12 @@ def gaussian_blur_random_sigma(rng, x: torch.Tensor, kernel_size: int = 3) -> to
     return _separable_blur(x, k / k.sum(), "reflect")
 
 
-def gaussian_blur(x: torch.Tensor, sigma: float, kernel_size: int = 3) -> torch.Tensor:
-    """Separable Gaussian blur of [H, W, C] with replicate (edge) padding and
-    a fixed ``sigma``."""
+def gaussian_blur(x: torch.Tensor, sigma: float, kernel_size: int = 3,
+                  border: str = "replicate") -> torch.Tensor:
+    """Separable Gaussian blur of [H, W, C] with a fixed ``sigma``, padded by
+    ``border``: "replicate" (the edge pixel, as the JAX package's blur) or
+    "reflect" (cv2's default reflect-101: mirrored without repeating the
+    edge pixel)."""
     half = kernel_size // 2
     k = np.exp(-np.arange(-half, half + 1, dtype=np.float64) ** 2 / (2 * sigma ** 2))
-    return _separable_blur(x, [float(v) for v in (k / k.sum()).astype(np.float32)], "replicate")
+    return _separable_blur(x, [float(v) for v in (k / k.sum()).astype(np.float32)], border)

@@ -1,12 +1,22 @@
 """Training CLI: ``python -m ivid_tpu_torch.train --config CONFIG``.
 
-The port of the repo's ``train.py`` on one device: a JSON config
+The port of the repo's ``train.py``: a JSON config
 (``backbone``/``framework``/``dataset``/``trainer``), the dataset, backbone,
 framework and trainer built from their registries, an optional resume
 (``--ckpt STEP`` or ``latest``, from ``--load_dir`` or the run directory),
 and the run directory ``{output_dir}/{config name}`` with ``command.txt``,
 ``config.json``, ``log.txt``, ``ckpts/`` and ``samples/``. ``--device``
 (default ``cuda``) picks the device; the CPU runs the kernels' plain versions.
+
+Data parallel, one process per GPU::
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m ivid_tpu_torch.train --config CONFIG --data_dir DIR --distributed
+
+``--distributed`` joins the process group that the launcher's environment
+describes (NCCL on ``cuda:LOCAL_RANK``; gloo with ``--device cpu``) and
+leaves it when training ends. ``--num_workers`` and ``--worker_mode`` set
+the loader's workers (the trainer's defaults: 4 threads).
 """
 
 from __future__ import annotations
@@ -27,6 +37,11 @@ def parse_args(argv=None):
     p.add_argument("--ckpt", type=str, default=None, help="step to resume, or 'latest'")
     p.add_argument("--max_steps", type=int, default=None, help="override the config")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--distributed", action="store_true",
+                   help="data parallel: one process per GPU, from torch.distributed.run")
+    p.add_argument("--num_workers", type=int, default=None, help="loader workers")
+    p.add_argument("--worker_mode", choices=["thread", "process"], default=None,
+                   help="loader workers as threads or spawned processes")
     return p.parse_args(argv)
 
 
@@ -35,22 +50,44 @@ def main(argv=None, record=None):
     ``record``, a ``StepRecord``, keeps the run's per-step losses (and
     times)."""
     opt = parse_args(argv)
+    from ivid_tpu_torch import parallel
+
+    if opt.distributed:
+        device = parallel.init_from_env(torch.device(opt.device).type)
+    else:
+        device = torch.device(opt.device)
+    try:
+        return _train(opt, argv, device, record)
+    finally:
+        if opt.distributed:
+            parallel.shutdown()
+
+
+def _train(opt, argv, device, record):
+    from ivid_tpu_torch import parallel
     from ivid_tpu_torch.config import Config, build_backbone, build_framework_from_config
     from ivid_tpu_torch.data import build_dataset
     from ivid_tpu_torch.training import checkpoint as ckpt_io
     from ivid_tpu_torch.training.trainer import TRAINERS
 
-    device = torch.device(opt.device)
+    is_main = parallel.rank() == 0
     cfg = Config.load(opt.config)
     name = os.path.splitext(os.path.basename(opt.config))[0]
     output_dir = os.path.join(opt.output_dir, name)
-    os.makedirs(output_dir, exist_ok=True)
+    if is_main:
+        os.makedirs(output_dir, exist_ok=True)
 
+    # Rank 0 lists the files (and writes the listing's cache) first.
+    if not is_main:
+        parallel.barrier()
     dataset = build_dataset(cfg.dataset, opt.data_dir)
+    if is_main:
+        parallel.barrier()
     cfg.resolve_num_classes(dataset.num_classes)
     trainer_args = dict(cfg.trainer.get("args", {}))
-    if opt.max_steps is not None:
-        trainer_args["max_steps"] = opt.max_steps
+    for key in ("max_steps", "num_workers", "worker_mode"):
+        if getattr(opt, key) is not None:
+            trainer_args[key] = getattr(opt, key)
     if cfg.trainer["name"] not in TRAINERS:
         raise NotImplementedError(f"trainer {cfg.trainer['name']!r} is not ported yet")
     trainer_cls = TRAINERS[cfg.trainer["name"]]
@@ -61,18 +98,23 @@ def main(argv=None, record=None):
     framework = build_framework_from_config(cfg, model, device=device)
     trainer = trainer_cls(framework, dataset, output_dir, device=device, **trainer_args)
     trainer.record = record
+    try:
+        if is_main:
+            with open(os.path.join(output_dir, "command.txt"), "a") as f:
+                print(" ".join(sys.argv if argv is None else ["ivid_tpu_torch.train", *argv]),
+                      file=f)
+            cfg.save(os.path.join(output_dir, "config.json"))
 
-    with open(os.path.join(output_dir, "command.txt"), "a") as f:
-        print(" ".join(sys.argv if argv is None else ["ivid_tpu_torch.train", *argv]), file=f)
-    cfg.save(os.path.join(output_dir, "config.json"))
-
-    step = opt.ckpt
-    if step == "latest":
-        step = ckpt_io.find_latest_step(opt.load_dir or output_dir)
-    if step is not None:
-        trainer.load(opt.load_dir or output_dir, int(step))
-        print(f"Resumed from step {trainer.step}")
-    trainer.run()
+        step = opt.ckpt
+        if step == "latest":
+            step = ckpt_io.find_latest_step(opt.load_dir or output_dir)
+        if step is not None:
+            trainer.load(opt.load_dir or output_dir, int(step))
+            if is_main:
+                print(f"Resumed from step {trainer.step}")
+        trainer.run()
+    finally:
+        trainer.close()
     return trainer
 
 

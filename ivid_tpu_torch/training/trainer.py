@@ -2,7 +2,8 @@
 checkpointing, logging and sample grids.
 
 Port of ``ivid_tpu/training/trainer.py`` (``BasicTrainer``,
-``InpaintTrainer``, ``SuperResTrainer``) on one device:
+``InpaintTrainer``, ``SuperResTrainer``), on one device or data parallel
+over ``torch.distributed`` (one process per GPU):
 
 - Parameters stay in f32; a bf16 torso casts them per call (``models/adm.py``).
 - AdamW with optax's defaults (betas 0.9/0.999, eps 1e-8) and the config's
@@ -17,7 +18,20 @@ Port of ``ivid_tpu/training/trainer.py`` (``BasicTrainer``,
   noise-source state and loader cursor, so a resumed run repeats the loss
   sequence of an uninterrupted one.
 - The inpaint trainer synthesizes its warp conditioning on the device in
-  every step (``training/warp_cond.py``), the warp batched over the batch.
+  every step (``training/warp_cond.py``), the warp batched over the batch,
+  or, with ``warp_host``, takes it from loader workers that warp on the CPU
+  (``data/warp_host.py``).
+- Data parallel (a process group is up): the batch is global,
+  ``batch_size_per_gpu × world``; each rank loads its own rows (the loader's
+  shards) and the model runs through ``DistributedDataParallel``, which
+  averages the gradients (the first ``batch_split − 1`` micro-batches under
+  ``no_sync``). Every rank derives the step's noise as one device would for
+  the global batch and keeps its own rows (``parallel.RowShardNoise``, and
+  the warp's per-sample sources split over the global batch), so a run on
+  N ranks takes the steps of one rank at the same global batch. Parameters
+  are checked bit-equal across ranks at set-up, after every load and every
+  ``i_ddpcheck`` steps. Only rank 0 writes logs, checkpoints and sample
+  grids (sampling with the unwrapped model); the others wait at a barrier.
 - The inpaint and super-resolution trainers can start from a checkpoint of a
   model with fewer input channels (``finetune_ckpt``): its first convolution
   is zero-padded (``checkpoint.finetune_load``), and the EMA copies start
@@ -26,6 +40,7 @@ Port of ``ivid_tpu/training/trainer.py`` (``BasicTrainer``,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -34,9 +49,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ivid_tpu_torch import parallel
 from ivid_tpu_torch.data.loader import DataLoader
+from ivid_tpu_torch.data.warp_host import HostWarpDataset
 from ivid_tpu_torch.diffusion import samplers
-from ivid_tpu_torch.diffusion.noise import TorchNoise
+from ivid_tpu_torch.diffusion.noise import KeyedNoise
 from ivid_tpu_torch.training import checkpoint as ckpt_io
 from ivid_tpu_torch.training import warp_cond
 from ivid_tpu_torch.utils.images import save_image_grid
@@ -45,14 +62,16 @@ from ivid_tpu_torch.utils.images import save_image_grid
 class StepRecord:
     """What a caller asks a trainer to keep of the steps it runs
     (``trainer.record = StepRecord()``): each step's loss as a device scalar
-    (no host sync per step) and, with ``timing`` on CUDA, CUDA events at the
-    boundaries of the step's stages."""
+    (no host sync per step), the seconds the step waited for the loader's
+    items, and, with ``timing`` on CUDA, CUDA events at the boundaries of the
+    step's stages."""
 
     STAGES = ("data_and_warp", "forward", "backward", "optimizer")
 
     def __init__(self, timing: bool = False):
         self.timing = timing
         self.losses = []
+        self.loader_waits = []
         self.events = []
 
     def stage_ms(self) -> list:
@@ -85,7 +104,11 @@ class BasicTrainer:
         i_log: int = 500,
         i_sample: int = 10000,
         i_save: int = 10000,
+        i_ddpcheck: int = 10000,
         sample_at_init: bool = True,
+        model_parallel: int = 1,
+        num_workers: int = 4,
+        worker_mode: str = "thread",
         seed: int = 0,
         device="cuda",
         noise=None,
@@ -93,7 +116,16 @@ class BasicTrainer:
         fp16_mode: Optional[str] = None,
         fp16_scale_growth: float = 1e-3,
     ):
+        """``batch_size`` is the global batch; ``batch_size_per_gpu``, where
+        given, makes it ``batch_size_per_gpu × world``. ``num_workers`` and
+        ``worker_mode`` ("thread" or "process") set the loader's workers.
+        ``noise`` is the noise source (default: a :class:`KeyedNoise` seeded
+        with ``seed + 1``; data parallel runs need one whose ``split`` gives
+        distinct sources)."""
         del fp16_mode, fp16_scale_growth
+        if model_parallel != 1:
+            raise NotImplementedError(f"model_parallel={model_parallel}: tensor parallelism is "
+                                      "not ported; the port is data parallel only")
         if batch_size is None and batch_size_per_gpu is None:
             raise ValueError("give batch_size or batch_size_per_gpu")
         self.framework = framework
@@ -101,10 +133,17 @@ class BasicTrainer:
         self.dataset = dataset
         self.output_dir = output_dir
         self.max_steps = max_steps
-        self.batch_size = batch_size_per_gpu if batch_size_per_gpu is not None else batch_size
+        self.rank, self.world = parallel.rank(), parallel.world_size()
+        self.is_main = self.rank == 0
+        self.batch_size = (batch_size_per_gpu * self.world if batch_size_per_gpu is not None
+                           else batch_size)
+        if self.batch_size % self.world:
+            raise ValueError(f"global batch {self.batch_size} not divisible by {self.world} ranks")
+        self.local_batch_size = self.batch_size // self.world
         self.batch_split = batch_split or 1
-        if self.batch_size % self.batch_split:
-            raise ValueError(f"batch {self.batch_size} not divisible by split {self.batch_split}")
+        if self.local_batch_size % self.batch_split:
+            raise ValueError(f"batch {self.local_batch_size} per rank not divisible by split "
+                             f"{self.batch_split}")
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.ema_rate = [ema_rate] if isinstance(ema_rate, float) else list(ema_rate)
@@ -112,14 +151,24 @@ class BasicTrainer:
         self.i_log = i_log
         self.i_sample = i_sample
         self.i_save = i_save
+        self.i_ddpcheck = i_ddpcheck
         self.sample_at_init = sample_at_init
+        self.num_workers = num_workers
+        self.worker_mode = worker_mode
         self.seed = seed
         self.device = torch.device(device)
-        os.makedirs(os.path.join(output_dir, "ckpts"), exist_ok=True)
-        os.makedirs(os.path.join(output_dir, "samples"), exist_ok=True)
+        if self.is_main:
+            os.makedirs(os.path.join(output_dir, "ckpts"), exist_ok=True)
+            os.makedirs(os.path.join(output_dir, "samples"), exist_ok=True)
 
         self.step = 0
         self.model.to(self.device).train()
+        #: the model behind DistributedDataParallel when a process group is
+        #: up (also at world size 1), else None.
+        self.ddp = None
+        if torch.distributed.is_initialized():
+            self.ddp = torch.nn.parallel.DistributedDataParallel(
+                self.model, device_ids=[self.device] if self.device.type == "cuda" else None)
         self.params = dict(self.model.named_parameters())
         self.optimizer = torch.optim.AdamW(
             self.params.values(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
@@ -128,19 +177,37 @@ class BasicTrainer:
         self.ema_params = [
             {k: p.detach().clone() for k, p in self.params.items()} for _ in self.ema_rate
         ]
-        self.rng = noise if noise is not None else TorchNoise.seeded(seed + 1, self.device)
+        self.rng = noise if noise is not None else KeyedNoise.seeded(seed + 1, self.device)
         #: a :class:`StepRecord` that keeps every step's loss (and times), or
         #: None: the trainer itself keeps nothing per step.
         self.record: Optional[StepRecord] = None
+        self.loader = None
         self._build_loader()
-        self._print_banner()
+        parallel.check_replication(self.model.named_parameters())
+        if self.is_main:
+            self._print_banner()
 
     # ---- set-up ----
 
+    def _loader_dataset(self):
+        """Hook: the dataset the loader reads (trainers may wrap it)."""
+        return self.dataset
+
     def _build_loader(self, start=(0, 0)):
-        self._loader_obj = DataLoader(self.dataset, self.batch_size, seed=self.seed,
-                                      start=tuple(int(x) for x in start))
+        if self.loader is not None:
+            self.loader.close()
+        self._loader_obj = DataLoader(
+            self._loader_dataset(), self.batch_size, num_workers=self.num_workers,
+            worker_mode=self.worker_mode, seed=self.seed, shard_index=self.rank,
+            num_shards=self.world, start=tuple(int(x) for x in start))
         self.loader = iter(self._loader_obj)
+
+    def close(self):
+        """Stop the loader's workers; a later step starts them again at the
+        loader's cursor."""
+        if self.loader is not None:
+            self.loader.close()
+            self.loader = None
 
     def _device_batch(self, batch: dict) -> dict:
         out = {}
@@ -164,33 +231,50 @@ class BasicTrainer:
         rng_prep, rng_loss = rng.split()
         batch = self.prepare_batch(batch, rng_prep)
         mark(1)
+        if self.world > 1:
+            rng_loss = parallel.RowShardNoise(rng_loss, self.rank, self.world)
         self.optimizer.zero_grad(set_to_none=True)
         if self.batch_split > 1:
             # Forward and backward interleave: "loss done" is the last
-            # microbatch's.
+            # microbatch's. The ranks average the gradients once, in the
+            # last microbatch's backward.
             n = self.batch_split
             micro = {k: v.reshape((n, -1) + v.shape[1:]) for k, v in batch.items()}
             per = []
             for i in range(n):
-                loss, metrics = self.framework.training_loss(
-                    rng_loss.fold_in(i), {k: v[i] for k, v in micro.items()}
-                )
-                if i == n - 1:
-                    mark(2)
-                loss.backward()
+                sync = (contextlib.nullcontext() if self.ddp is None or i == n - 1
+                        else self.ddp.no_sync())
+                with sync:
+                    loss, metrics = self._loss(rng_loss.fold_in(i),
+                                               {k: v[i] for k, v in micro.items()})
+                    if i == n - 1:
+                        mark(2)
+                    loss.backward()
                 per.append(metrics)
             for p in self.params.values():
                 if p.grad is not None:
                     p.grad.div_(n)
             metrics = {k: torch.stack([m[k] for m in per]).mean() for k in per[0]}
         else:
-            loss, metrics = self.framework.training_loss(rng_loss, batch)
+            loss, metrics = self._loss(rng_loss, batch)
             mark(2)
             loss.backward()
         mark(3)
         self.optimizer.step()
         self.update_ema()
         return metrics
+
+    def _loss(self, rng, batch):
+        """The framework's training loss, its forward through the DDP
+        wrapper when there is one (whose backward hooks average the
+        gradients over the ranks)."""
+        if self.ddp is None:
+            return self.framework.training_loss(rng, batch)
+        self.framework.model = self.ddp
+        try:
+            return self.framework.training_loss(rng, batch)
+        finally:
+            self.framework.model = self.model
 
     @torch.no_grad()
     def update_ema(self):
@@ -208,6 +292,9 @@ class BasicTrainer:
             events = tuple(torch.cuda.Event(enable_timing=True)
                            for _ in range(len(StepRecord.STAGES) + 1))
             events[0].record()
+        if self.loader is None:
+            self._build_loader(start=self._loader_obj.position)
+        waited = self._loader_obj.wait_seconds
         batch = self._device_batch(next(self.loader))
         self.rng, step_rng = self.rng.split()
         metrics = self._train_step(batch, step_rng, events)
@@ -216,6 +303,7 @@ class BasicTrainer:
                 events[-1].record()
                 rec.events.append(events)
             rec.losses.append(metrics["loss"])
+            rec.loader_waits.append(self._loader_obj.wait_seconds - waited)
         return metrics
 
     # ---- checkpoints ----
@@ -236,6 +324,7 @@ class BasicTrainer:
         ckpt_io.save(ckpt_io.model_path(self.output_dir, self.step), self.model.state_dict())
 
     def load(self, load_dir: str, step: int):
+        """Resume from the checkpoint of ``step`` (every rank reads it)."""
         self.model.load_state_dict(ckpt_io.load(ckpt_io.model_path(load_dir, step)))
         misc = ckpt_io.load(ckpt_io.misc_path(load_dir, step))
         if [float(r) for r in misc["ema_rates"]] != [float(r) for r in self.ema_rate]:
@@ -247,6 +336,7 @@ class BasicTrainer:
         self.step = int(misc["step"])
         self.rng.load_state_dict(misc["rng"])
         self._build_loader(start=misc["loader_pos"])
+        parallel.check_replication(self.model.named_parameters())
 
     # ---- sample grids ----
 
@@ -282,45 +372,60 @@ class BasicTrainer:
 
     # ---- the loop ----
 
+    def _on_main(self, fn):
+        """``fn()`` on rank 0; the other ranks wait for it at a barrier."""
+        if self.is_main:
+            fn()
+        parallel.barrier()
+
     def run(self):
         if self.step == 0 and self.sample_at_init:
-            self.sample(suffix="init")
+            self._on_main(lambda: self.sample(suffix="init"))
         log = []
         elapsed = 0.0
-        with open(os.path.join(self.output_dir, "log.txt"), "a") as log_file:
+        log_file = open(os.path.join(self.output_dir, "log.txt"), "a") if self.is_main else None
+        try:
             while self.step < self.max_steps:
                 t0 = time.time()
                 metrics = self.run_step()
                 self.step += 1
                 report = self.step % self.i_log == 0 or (
                     self.i_print and self.step % self.i_print == 0)
-                values = {k: float(v) for k, v in metrics.items()} if report else None
+                # The logged metrics are the global batch's: the ranks' means.
+                values = ({k: float(parallel.mean_over_ranks(v)) for k, v in metrics.items()}
+                          if report else None)
                 dt = time.time() - t0
                 elapsed += dt
-                log.append((self.step, {
-                    "time": {"step": dt, "elapsed": elapsed},
-                    "loss": values if self.step % self.i_log == 0 else None,
-                }))
-                if self.i_print and self.step % self.i_print == 0:
-                    print(f"step {self.step}/{self.max_steps} loss {values['loss']:.4f} "
-                          f"({dt * 1000:.0f} ms/step, {elapsed:.0f}s elapsed)", flush=True)
-                if self.step % self.i_log == 0:
-                    for st, rec in log:
-                        print(f"{st}: {json.dumps(rec)}", file=log_file)
-                    log_file.flush()
-                    log = []
+                if self.i_ddpcheck and self.step % self.i_ddpcheck == 0:
+                    parallel.check_replication(self.model.named_parameters())
+                if self.is_main:
+                    log.append((self.step, {
+                        "time": {"step": dt, "elapsed": elapsed},
+                        "loss": values if self.step % self.i_log == 0 else None,
+                    }))
+                    if self.i_print and self.step % self.i_print == 0:
+                        print(f"step {self.step}/{self.max_steps} loss {values['loss']:.4f} "
+                              f"({dt * 1000:.0f} ms/step, {elapsed:.0f}s elapsed)", flush=True)
+                    if self.step % self.i_log == 0:
+                        for st, rec in log:
+                            print(f"{st}: {json.dumps(rec)}", file=log_file)
+                        log_file.flush()
+                        log = []
                 if self.step % self.i_save == 0:
-                    self.save()
+                    self._on_main(self.save)
                 if self.step % self.i_sample == 0:
-                    self.sample()
+                    self._on_main(self.sample)
+        finally:
+            if log_file is not None:
+                log_file.close()
 
     def _print_banner(self):
         print("\nTrainer initialized.")
         print(f"  - Backbone: {self.model.__class__.__name__}")
         print(f"  - Framework: {self.framework.__class__.__name__}")
         print(f"  - Dataset: {self.dataset.__class__.__name__}")
-        print(f"  - Device: {self.device}")
-        print(f"  - Batch size: {self.batch_size}")
+        print(f"  - Device: {self.device}, ranks: {self.world}")
+        print(f"  - Batch size: {self.batch_size} ({self.local_batch_size} per rank)")
         print(f"  - Batch split: {self.batch_split}")
         print(f"  - LR / WD: {self.learning_rate} / {self.weight_decay}")
         print(f"  - EMA rates: {self.ema_rate}")
@@ -337,32 +442,57 @@ class FinetuneMixin:
             for ema in self.ema_params:
                 for k, v in ema.items():
                     v.copy_(self.params[k])
-        print(f"Finetuning from {finetune_ckpt}")
+        parallel.check_replication(self.model.named_parameters())
+        if self.is_main:
+            print(f"Finetuning from {finetune_ckpt}")
 
 
 class InpaintTrainer(FinetuneMixin, BasicTrainer):
     """Conditional-completion trainer with warp conditioning synthesized on
-    the device in every step."""
+    the device in every step, or, with ``warp_host``, in the loader's
+    workers on the CPU (:class:`HostWarpDataset`; the sample grids still warp
+    on the device). ``backbone_args`` is accepted for the configs' sake: the
+    JAX package needs a reference checkpoint's architecture to rename its
+    weights, and the port reads them by their names."""
 
-    def __init__(self, framework, dataset, output_dir, *, finetune_ckpt=None, **kwargs):
+    def __init__(self, framework, dataset, output_dir, *, finetune_ckpt=None,
+                 backbone_args=None, warp_host=False, **kwargs):
+        del backbone_args
         self.augments = tuple(getattr(dataset, "augments", ()))
         self.pose_std = float(getattr(dataset, "std", 0.15))
         self.near = float(getattr(dataset, "near", 0.5))
         self.far = float(getattr(dataset, "far", 100.0))
+        self.warp_host = bool(warp_host)
         super().__init__(framework, dataset, output_dir, **kwargs)
         if finetune_ckpt:
             self.finetune_from(finetune_ckpt)
 
+    def _loader_dataset(self):
+        if not self.warp_host:
+            return self.dataset
+        return HostWarpDataset(self.dataset, augments=self.augments, pose_std=self.pose_std,
+                               near=self.near, far=self.far, seed=self.seed)
+
     def prepare_batch(self, batch, rng):
-        return self.synthesize_cond(batch, rng)
+        """The warp conditioning of this rank's rows: one source per row of
+        the global batch (``rng.split(global batch)``), this rank's block
+        kept. With ``warp_host`` the loader attached it already."""
+        if self.warp_host:
+            return batch
+        b = batch["x_0"].shape[0]
+        rows = rng.split(b * self.world)[self.rank * b:(self.rank + 1) * b]
+        return self._synthesize(batch, rows)
 
     def synthesize_cond(self, batch, rng):
         """Random orbit pose, forward-backward warp and augments per sample
         (one noise source each, ``rng.split(B)``); adds ``y``, ``mask``,
         ``mask_rgb`` (with erode_rgb) and ``pose`` to the batch."""
+        return self._synthesize(batch, rng.split(batch["x_0"].shape[0]))
+
+    def _synthesize(self, batch, rngs):
         x01 = batch["x_0"] * 0.5 + 0.5  # datasets normalize to [-1, 1]
         warped = warp_cond.synthesize_batch(
-            x01, rng.split(x01.shape[0]), augments=self.augments, pose_std=self.pose_std,
+            x01, rngs, augments=self.augments, pose_std=self.pose_std,
             near=self.near, far=self.far,
         )
         out = dict(batch)
@@ -401,9 +531,12 @@ class InpaintTrainer(FinetuneMixin, BasicTrainer):
 
 class SuperResTrainer(FinetuneMixin, BasicTrainer):
     """Super-resolution trainer: the dataset's items carry the low-resolution
-    ``y`` that the framework (``SuperResCFG``) packs."""
+    ``y`` that the framework (``SuperResCFG``) packs. ``backbone_args`` is
+    accepted as by :class:`InpaintTrainer`."""
 
-    def __init__(self, framework, dataset, output_dir, *, finetune_ckpt=None, **kwargs):
+    def __init__(self, framework, dataset, output_dir, *, finetune_ckpt=None,
+                 backbone_args=None, **kwargs):
+        del backbone_args
         super().__init__(framework, dataset, output_dir, **kwargs)
         if finetune_ckpt:
             self.finetune_from(finetune_ckpt)

@@ -54,11 +54,14 @@ def test_loader_and_resume_match_jax():
 
 
 def test_registry_names_unported_datasets():
-    assert sorted(DATASETS) == ["SyntheticRGBD", "SyntheticRGBDSR", "SyntheticRGBDWarp"]
+    """Every dataset of the JAX package is ported; another name raises."""
+    from ivid_tpu.data import DATASETS as JDATASETS
+
+    assert sorted(DATASETS) == sorted(JDATASETS)
     ds = build_dataset({"name": "SyntheticRGBDWarp", "args": dict(ARGS, augments=["blur"])}, "")
     assert ds.augments == ["blur"] and len(ds) == 10
-    with pytest.raises(NotImplementedError, match="SingleCategoryWarp"):
-        build_dataset({"name": "SingleCategoryWarp", "args": {}}, "data")
+    with pytest.raises(NotImplementedError, match="LSUNWarp"):
+        build_dataset({"name": "LSUNWarp", "args": {}}, "data")
 
 
 def test_checkpoint_files(tmp_path):

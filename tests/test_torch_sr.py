@@ -39,7 +39,7 @@ from ivid_tpu.ops import image as jimage
 from ivid_tpu.training import checkpoint as jckpt
 from ivid_tpu.training.trainer import SuperResTrainer as JSuperResTrainer
 from ivid_tpu_torch import sr
-from ivid_tpu_torch.data import DATASETS, SyntheticRGBDSR, build_dataset
+from ivid_tpu_torch.data import DATASETS, SRDataset, SyntheticRGBDSR
 from ivid_tpu_torch.diffusion import samplers as tsamp
 from ivid_tpu_torch.diffusion.frameworks import build_framework as torch_framework
 from ivid_tpu_torch.inference.scene_io import load_scene
@@ -170,9 +170,8 @@ def test_synthetic_sr_items_match_jax(num_classes):
     assert len(got) == len(want) and got.num_classes == want.num_classes
     assert got.image_size_lr == want.image_size_lr == 16
     assert DATASETS["SyntheticRGBDSR"] is SyntheticRGBDSR
-    for name in ("ImageNetSR", "SingleCategorySR"):  # file-backed: not ported yet
-        with pytest.raises(NotImplementedError, match=f"dataset {name!r} is not ported yet"):
-            build_dataset({"name": name, "args": {}}, "data")
+    for name in ("ImageNetSR", "SingleCategorySR"):  # file-backed (tests/test_torch_data_files.py)
+        assert issubclass(DATASETS[name], SRDataset)
     for i in (0, 5):
         a, b = got[i], want[i]
         assert sorted(a) == sorted(b) and a["y"].shape == (16, 16, 4)
