@@ -62,6 +62,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 10. the sampling pipeline through ``ivid_tpu_torch.sample.main``: random
     viewset, batch 2, 1000-step DDPM then 50-step guided DDIM, with the
     host's wait for K2's bins (one per raster call);
+10b. ``[ckpt migrate]``: the full-width single-category pair (seeded
+    weights) written as the JAX package's flax msgpack files and read back
+    bit for bit (write and read MB/s); ``sample.main`` on them (random
+    viewset, batch 2, DDIM 50 + guided DDIM 10), its first UNet forward held
+    to the same forward on a ``.pt`` file of the same weights; then a
+    JAX-layout run directory of the cond model at step 3 (model, EMA, misc
+    with optax's AdamW moments) resumed by ``train.main --ckpt latest``
+    (state bit-equal to the files), and 3 steps of it under
+    ``--profile_dir`` (the trace parsed, ``model_summary.txt``'s total
+    checked);
 11. training through ``ivid_tpu_torch.train.main``: the full-width
     single-category cond model on SyntheticRGBDWarp 128², batch 8, 6 AdamW
     steps with a checkpoint at step 3 and a reload;
@@ -106,7 +116,7 @@ and seeded images) and 64 real seeded 128² PNGs with ``randconv`` and with
 ``inception:`` a seeded state dict, on the card and on the CPU (the metrics
 must agree), and each extractor's images/s on the card.
 
-Each main path (the benches of 5, and 10, 11, 12c, 13, 14, 15, the SR runs
+Each main path (the benches of 5, and 10, 10b, 11, 12c, 13, 14, 15, the SR runs
 of 13 and 14, the render runs) runs with every launch
 counter set to 0 just before it and read just after. Then one JSON line
 with every kernel's numbers, the nvidia-smi line, and the last line
@@ -124,6 +134,7 @@ calls, which measure the host's issue time whenever that is longer.
 """
 
 import json
+import math
 import os
 import sys
 import tempfile
@@ -185,6 +196,11 @@ TRAIN_LOSS_REL, TRAIN_PARAM_REL = 1e-3, 1e-5
 # torso against f32: 1.3e-2 relative L2 at full width), with room for
 # cuDNN's other sum order.
 SR_BF16_REL = 5e-2
+
+# The first UNet forward of a sampling run on weights read from a .msgpack file
+# vs the same forward on the .pt file of the same weights: the same bits in,
+# the same kernels; room for cuDNN picking another algorithm between calls.
+CKPT_FORWARD_REL = 1e-6
 
 # A rendered frame on the card vs the CPU (the same scene, K2 vs its plain
 # version, f32 renders, 8-bit Lanczos resize): pixels whose color or depth
@@ -1712,6 +1728,193 @@ def phase_pipeline():
     return counts
 
 
+def ckpt_sampling(tmp, paths, pt_path, device="cuda"):
+    """``sample.main`` on the JAX-layout files; its first UNet forward held
+    to the same forward on the ``.pt`` file of the same weights."""
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch import sample
+    from ivid_tpu_torch.config import Config
+    from ivid_tpu_torch.models.adm import AdmUnet2d
+
+    first = []
+
+    def keep_first(module, args, output):
+        if isinstance(module, AdmUnet2d) and not first:
+            first.append((tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args),
+                          output.detach().clone()))
+
+    argv = ["--config_uncond", UNCOND_CFG, "--config_cond", COND_CFG,
+            "--ckpt_uncond", paths["uncond"], "--ckpt_cond", paths["cond"],
+            "--output_dir", os.path.join(tmp, "samples"), "--seeds", "0-1", "--viewset", "random",
+            "--batchsize", "2", "--steps_uncond", "50", "--steps_cond", "10", "--device", device]
+    handle = torch.nn.modules.module.register_module_forward_hook(keep_first)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        result = sample.main(argv)
+    finally:
+        handle.remove()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    samples = np.concatenate(result["samples"], axis=0)
+    args, want = first[0]
+    with torch.no_grad():
+        got = sample.build_model(Config.load(UNCOND_CFG), pt_path, 0, torch.device(device)).model(*args)
+    rel = float((got - want).norm() / want.norm())
+    log(f"[ckpt migrate] sample.main on the .msgpack pair, random viewset, batch 2, DDIM 50 + "
+        f"guided DDIM 10: wall {wall:.2f} s; samples {samples.shape} finite "
+        f"{bool(np.isfinite(samples).all())}; launches {counts}; first UNet forward vs the .pt "
+        f"weights: rel L2 {rel:.3e} (<= {CKPT_FORWARD_REL})")
+    if not (np.isfinite(samples).all() and samples.shape == (2, 2, 128, 128, 4)
+            and counts["K1"] >= 5 * 60 and counts["K2"] >= 1 and rel <= CKPT_FORWARD_REL):
+        raise RuntimeError("[ckpt migrate] sampling from the .msgpack files failed its checks")
+    return counts
+
+
+def ckpt_resume(tmp, state, arch_args, device="cuda"):
+    """A JAX-layout run directory of the cond model at step 3 (model, EMA,
+    misc with seeded AdamW moments), resumed by ``train.main``: loaded bit
+    for bit, then 3 profiled steps with ``--profile_dir``."""
+    import torch
+
+    from ivid_tpu_torch import train
+    from ivid_tpu_torch.models.convert import state_dict_to_flax
+    from ivid_tpu_torch.training import checkpoint as ckpt_io
+    from ivid_tpu_torch.training import flax_msgpack
+    from ivid_tpu_torch.training.trainer import StepRecord
+
+    with open(COND_CFG) as f:
+        cfg = json.load(f)
+    cfg["dataset"] = {"name": "SyntheticRGBDWarp",
+                      "args": dict(cfg["dataset"]["args"], length=64)}
+    cfg["trainer"]["args"].update(i_save=10 ** 9, i_log=10 ** 9, i_sample=10 ** 9,
+                                  sample_at_init=False)
+    rate = cfg["trainer"]["args"]["ema_rate"][0]
+    path = os.path.join(tmp, os.path.basename(COND_CFG))
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    run = os.path.join(tmp, "jax_run")
+    gen = torch.Generator().manual_seed(5)
+    ema = {k: v + 1e-3 * torch.randn(v.shape, generator=gen) for k, v in state.items()}
+    mu = {k: 1e-3 * torch.randn(v.shape, generator=gen) for k, v in state.items()}
+    nu = {k: 1e-6 * torch.rand(v.shape, generator=gen) for k, v in state.items()}
+    os.makedirs(os.path.join(run, "ckpts"))
+    flax_msgpack.write(ckpt_io.ema_path(run, rate, 3, ckpt_io.MSGPACK),
+                       state_dict_to_flax(ema, **arch_args))
+    flax_msgpack.write(ckpt_io.misc_path(run, 3, ckpt_io.MSGPACK), ckpt_io.jax_misc(
+        step=3, adam_step=3, exp_avg=mu, exp_avg_sq=nu, rng=[0, 42], loader_pos=[0, 3],
+        ema_rates=[rate], arch_args=arch_args))
+    flax_msgpack.write(ckpt_io.model_path(run, 3, ckpt_io.MSGPACK),
+                       state_dict_to_flax(state, **arch_args))
+    argv = ["--config", path, "--output_dir", os.path.join(tmp, "out"), "--ckpt", "latest",
+            "--load_dir", run, "--device", device]
+
+    loaded = train.main(argv + ["--max_steps", "3"])
+    opt = [loaded.optimizer.state[p] for p in loaded.params.values()]
+    names = list(loaded.params)
+    same = (loaded.step == 3 and loaded._loader_obj.position == (0, 3)
+            and all(float(o["step"]) == 3 for o in opt)
+            and all(torch.equal(o["exp_avg"].cpu(), mu[k]) and torch.equal(o["exp_avg_sq"].cpu(), nu[k])
+                    for k, o in zip(names, opt))
+            and all(torch.equal(v.cpu(), ema[k]) for k, v in loaded.ema_params[0].items())
+            and all(torch.equal(v.cpu(), state[k]) for k, v in loaded.model.state_dict().items()))
+    n_params = sum(p.numel() for p in loaded.params.values())
+    del loaded, opt
+    log(f"[ckpt migrate] train.main --ckpt latest on the JAX-layout run: step 3, model, EMA "
+        f"{rate}, exp_avg, exp_avg_sq, AdamW step and loader cursor bit-equal to the written "
+        f"ones: {same}")
+    if not same:
+        raise RuntimeError("[ckpt migrate] the resumed trainer's state differs from the files")
+
+    prof = os.path.join(tmp, "profile")
+    rec = StepRecord()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = train.main(argv + ["--max_steps", "5", "--profile_dir", prof], record=rec)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [float(x) for x in rec.losses]
+    traces = sorted(os.listdir(prof))
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    run_dir = os.path.join(tmp, "out", os.path.splitext(os.path.basename(COND_CFG))[0])
+    with open(os.path.join(run_dir, "model_summary.txt")) as f:
+        summary = f.read()
+    total = next(int(line.split()[2].replace(",", "")) for line in summary.splitlines()
+                 if line.startswith("Total params: "))
+    flops = next(line for line in summary.splitlines() if line.startswith("Forward FLOPs"))
+    log(f"[ckpt migrate] train.main --max_steps 5 --profile_dir: wall {wall:.2f} s; resumed at 3, "
+        f"now at step {tr.step} after {len(losses)} profiled steps, losses "
+        f"{[round(x, 5) for x in losses]}; launches {counts}; trace {traces}: {len(events)} "
+        f"events, {kernels} CUDA kernel events; model_summary.txt total {total:,} "
+        f"(model {n_params:,}); {flops}")
+    if not (tr.step == 6 and len(losses) == 3 and all(math.isfinite(x) for x in losses)
+            and len(traces) == 1 and total == n_params and counts["K1"] == 5 * 3
+            and counts["K4"] == 5 * 3 and counts["K3"] == 2 * 3):
+        raise RuntimeError("[ckpt migrate] the resumed, profiled run failed its checks")
+    return counts
+
+
+def phase_ckpt_migrate(device="cuda"):
+    """The full-width single-category pair written as the JAX package's
+    ``model_step0000000.msgpack`` files (seeded weights) and read back bit
+    for bit; sampling from them (:func:`ckpt_sampling`); a JAX-layout run of
+    the cond model resumed (:func:`ckpt_resume`). Returns the launch counts
+    of the two paths."""
+    import shutil
+
+    import torch
+
+    from ivid_tpu_torch import timing
+    from ivid_tpu_torch.config import Config, build_backbone
+    from ivid_tpu_torch.models import adm
+    from ivid_tpu_torch.models.convert import state_dict_to_flax
+    from ivid_tpu_torch.training import checkpoint as ckpt_io
+    from ivid_tpu_torch.training import flax_msgpack
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    t_phase = time.perf_counter()
+    try:
+        paths, states, arch = {}, {}, {}
+        for tag, cfg_path, seed in (("uncond", UNCOND_CFG, 0), ("cond", COND_CFG, 1)):
+            model = adm.randomize_parameters(build_backbone(Config.load(cfg_path)), seed)
+            sd, arch[tag] = model.state_dict(), model.arch_args
+            del model
+            path = os.path.join(tmp, tag, "ckpts", "model_step0000000.msgpack")
+            os.makedirs(os.path.dirname(path))
+            t0 = time.perf_counter()
+            flax_msgpack.write(path, state_dict_to_flax(sd, **arch[tag]))
+            t1 = time.perf_counter()
+            tree = flax_msgpack.read(path)
+            t2 = time.perf_counter()
+            back = ckpt_io.load_model_state(path, arch[tag])
+            t3 = time.perf_counter()
+            del tree
+            mb = os.path.getsize(path) / 1e6
+            equal = sorted(back) == sorted(sd) and all(torch.equal(back[k], sd[k]) for k in sd)
+            log(f"[ckpt migrate] {tag}: {sum(v.numel() for v in sd.values()):,} parameters, "
+                f"{mb:.1f} MB; write (convert + write) {mb / (t1 - t0):.1f} MB/s, read alone "
+                f"{mb / (t2 - t1):.1f} MB/s, load_model_state (read + convert) "
+                f"{mb / (t3 - t2):.1f} MB/s (the file just written: the page cache, not the "
+                f"disk); read back bit-equal {equal}; {timing.card_line()}")
+            if not equal:
+                raise RuntimeError(f"[ckpt migrate] {tag}: the file does not read back equal")
+            paths[tag], states[tag] = path, sd
+        pt_path = os.path.join(tmp, "uncond.pt")
+        torch.save(states["uncond"], pt_path)
+        sampling = ckpt_sampling(tmp, paths, pt_path, device)
+        resume = ckpt_resume(tmp, states["cond"], arch["cond"], device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[ckpt migrate] phase wall {time.perf_counter() - t_phase:.2f} s")
+    return sampling, resume
+
+
 def train_chain_run(device):
     """A few InpaintTrainer steps of a small f32 cond model (32², attention
     at T=1024 so K1 and K4 run, the warp at r=96 through K3 and K2) with
@@ -2090,6 +2293,7 @@ def main():
     phase_sr_chain()
     phase_train_chain()
     sampling = phase_pipeline()
+    ckpt_sampling_counts, ckpt_resume_counts = phase_ckpt_migrate()
     training, trainer = phase_train()
     phase_train_profile(trainer)
     del trainer
@@ -2111,7 +2315,9 @@ def main():
                              (skirt8, "K2", training), (k4, "K4", training)):
         entry["launches"] = path[key]
         entry["launches_by_path"] = {"sampling": sampling[key], "training": training[key],
-                                     "file training": file_training[key]}
+                                     "file training": file_training[key],
+                                     "msgpack sampling": ckpt_sampling_counts[key],
+                                     "msgpack resume": ckpt_resume_counts[key]}
     skirt1["launches"] = 0
     # The free-view render: one K2 launch per frame, over all of a scene's
     # slots (27 at 640² for a ``3x9`` scene, 2 at 1280² for an SR scene).

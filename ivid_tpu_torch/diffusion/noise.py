@@ -82,6 +82,13 @@ class KeyedNoise:
     def seeded(cls, seed: int, device=None) -> "KeyedNoise":
         return cls(_derive(0, "seed", int(seed)), device)
 
+    @classmethod
+    def from_jax_key(cls, key: Sequence[int], device=None) -> "KeyedNoise":
+        """A source derived from the two uint32 words of a ``jax.random``
+        key, deterministically. It does not continue the key's stream:
+        threefry cannot be continued here, so its draws differ from JAX's."""
+        return cls(_derive(0, "jax_key", *(int(w) for w in key)), device)
+
     def split(self, num: int = 2) -> Tuple["KeyedNoise", ...]:
         return tuple(KeyedNoise(_derive(self.key, "split", num, i), self.device)
                      for i in range(num))

@@ -65,14 +65,26 @@ def _initial_noise(rng, noise, num, image_size):
     return rng, rng_init.normal((num, image_size, image_size, 4))
 
 
+def _result(x, traj) -> dict:
+    """``samples``, and with a trajectory ``pred_x_t``/``pred_x_0`` stacked
+    ``[steps, B, ...]`` in step order, as the JAX samplers' scans stack them."""
+    out = {"samples": x}
+    if traj is not None:
+        out["pred_x_t"] = torch.stack([x_t for x_t, _ in traj])
+        out["pred_x_0"] = torch.stack([x_0 for _, x_0 in traj])
+    return out
+
+
 @torch.no_grad()
 def ddpm_sample(framework, rng, *, num=None, image_size=None, noise=None, cond=None,
-                guidance=0.0) -> dict:
-    """Full-T ancestral (DDPM) sampling."""
+                guidance=0.0, return_trajectory=False) -> dict:
+    """Full-T ancestral (DDPM) sampling. ``return_trajectory`` adds each
+    step's ``x_{t-1}`` (``pred_x_t``) and ``pred_x_0``."""
     s = framework.schedule
     T = s.timesteps
     rng, x = _initial_noise(rng, noise, num, image_size)
     nd = x.dim()
+    traj = [] if return_trajectory else None
     for i in range(T - 1, -1, -1):
         t = torch.full((x.shape[0],), i, dtype=torch.long, device=x.device)
         rng_model, rng_noise = rng.fold_in(i).split()
@@ -81,16 +93,19 @@ def ddpm_sample(framework, rng, *, num=None, image_size=None, noise=None, cond=N
         mean, _, log_var = sched.q_posterior_mean_variance(s, pred_x_0, x, t)
         z = rng_noise.normal(x.shape)
         x = mean + _nonzero_mask(t, nd) * torch.exp(0.5 * log_var) * z
-    return {"samples": x}
+        if traj is not None:
+            traj.append((x, pred_x_0))
+    return _result(x, traj)
 
 
 @torch.no_grad()
 def ddim_sample(framework, rng, *, num=None, image_size=None, noise=None, cond=None,
                 guidance=0.0, steps=None, eta=0.0,
-                edits: Optional[PredX0Edits] = None) -> dict:
+                edits: Optional[PredX0Edits] = None, return_trajectory=False) -> dict:
     """Strided DDIM with guided pred_x_0 edits. Step pairs are
     ``(jump·(i+1), jump·i)`` for ``i = steps-1 … 0`` with ``jump = T // steps``;
-    the model is evaluated at ``t - 1``."""
+    the model is evaluated at ``t - 1``. ``return_trajectory`` adds each
+    step's ``x_{t-1}`` (``pred_x_t``) and edited ``pred_x_0``."""
     s = framework.schedule
     T = s.timesteps
     steps = T if steps is None else steps
@@ -99,6 +114,7 @@ def ddim_sample(framework, rng, *, num=None, image_size=None, noise=None, cond=N
     jump = T // steps
     rng, x = _initial_noise(rng, noise, num, image_size)
     nd = x.dim()
+    traj = [] if return_trajectory else None
     for i in range(steps - 1, -1, -1):
         t = torch.full((x.shape[0],), jump * (i + 1), dtype=torch.long, device=x.device)
         t_prev = torch.full_like(t, jump * i)
@@ -117,4 +133,6 @@ def ddim_sample(framework, rng, *, num=None, image_size=None, noise=None, cond=N
                 + torch.sqrt(1 - alpha_bar_prev - sigma ** 2) * eps)
         z = rng_noise.normal(x.shape)
         x = mean + nz * sigma * z
-    return {"samples": x}
+        if traj is not None:
+            traj.append((x, pred_x_0))
+    return _result(x, traj)

@@ -14,6 +14,12 @@ their weights to bf16 per call. GroupNorm runs in float32 with eps 1e-5, the
 timestep/class embedding MLP in float32, and the output head in float32. The
 public call takes and returns NHWC tensors; internally activations are NCHW.
 
+Dropout applies only where a caller asks for it (``deterministic=False``),
+as in the JAX package, whose callers never do: the module's
+``train()``/``eval()`` mode changes nothing in the forward. The dropout
+module stays at index 2 of ``out_layers``, so the reference's names
+(``out_layers.3``) hold.
+
 Initialization follows the reference: the residual blocks' second
 convolution, the attention output projection and the output convolution
 start at zero, so a fresh model predicts exactly zero.
@@ -119,7 +125,7 @@ class ResBlock(nn.Module):
             _conv(channels, out_channels, 1) if channels != out_channels else nn.Identity()
         )
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, deterministic: bool = True):
         h = self.in_layers[1](self.in_layers[0](x))
         if self.up:
             h, x = _up(h), _up(x)
@@ -127,13 +133,17 @@ class ResBlock(nn.Module):
             h, x = _down(h), _down(x)
         h = self.in_layers[2](h)
         emb_out = self.emb_layers(emb).to(h.dtype)[..., None, None]
-        norm, rest = self.out_layers[0], self.out_layers[1:]
+        norm, act, drop, conv = self.out_layers
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
-            h = rest(norm(h) * (1 + scale) + shift)
+            h = act(norm(h) * (1 + scale) + shift)
         else:
-            h = rest(norm(h + emb_out))
-        return self.skip_connection(x) + h
+            h = act(norm(h + emb_out))
+        if not deterministic and drop.p > 0:
+            # torch's global generator draws the mask (the JAX package's
+            # ``dropout`` rng stream has no counterpart here).
+            h = F.dropout(h, drop.p, training=True)
+        return self.skip_connection(x) + conv(h)
 
 
 class AttentionBlock(nn.Module):
@@ -169,7 +179,9 @@ class AttentionBlock(nn.Module):
         dt = normed.dtype
         qkv = F.linear(normed, self.qkv.weight[:, :, 0].to(dt), self.qkv.bias.to(dt)).contiguous()
         scale = float(1.0 / np.sqrt(np.sqrt(head_dim)))
-        if self.uses_kernel(t):
+        # Meta tensors carry only shapes (``utils/summary.py`` counts a
+        # forward's FLOPs on them): the plain version's products stand in.
+        if self.uses_kernel(t) and qkv.device.type != "meta":
             out = attn_ops.packed_attention(qkv, self.heads, scale)
         else:
             out = attn_ops.reference_attention(qkv, self.heads, scale)
@@ -180,16 +192,19 @@ class AttentionBlock(nn.Module):
 class EmbedSequential(nn.Sequential):
     """Sequential that hands the timestep embedding to its residual blocks."""
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, deterministic: bool = True):
         for layer in self:
-            x = layer(x, emb) if isinstance(layer, ResBlock) else layer(x)
+            x = layer(x, emb, deterministic) if isinstance(layer, ResBlock) else layer(x)
         return x
 
 
 class AdmUnet2d(nn.Module):
     """The ADM UNet. ``unet(x, t, classes)``: ``x`` [B,H,W,C] NHWC, ``t`` [B]
     integer timesteps, ``classes`` [B] labels or None (label -1 is the null
-    class when ``has_null_class``). Returns float32 [B,H,W,out_channels]."""
+    class when ``has_null_class``). Returns float32 [B,H,W,out_channels].
+    ``deterministic=False`` applies dropout (JAX's flag of the same name).
+    ``arch_args`` holds the arguments that name the parameters, as the
+    converters of ``models/convert.py`` take them."""
 
     def __init__(self, image_size: int, in_channels: int, model_channels: int,
                  out_channels: int, num_res_blocks: int,
@@ -203,6 +218,10 @@ class AdmUnet2d(nn.Module):
         self.in_channels = in_channels
         self.num_classes = num_classes
         self.dtype = dtype
+        self.arch_args = dict(
+            image_size=image_size, model_channels=model_channels, num_res_blocks=num_res_blocks,
+            channel_mult=list(channel_mult), attention_resolutions=list(attention_resolutions),
+            num_classes=num_classes)
         ed = model_channels * 4
         self.time_embed = nn.Sequential(
             TimestepEmbedding(model_channels), nn.Linear(model_channels, ed), nn.SiLU(),
@@ -254,7 +273,8 @@ class AdmUnet2d(nn.Module):
                                  _conv(ch, out_channels, 3, zero=True))
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+                classes: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> torch.Tensor:
         assert x.shape[1] == x.shape[2] == self.image_size, (
             f"expected {self.image_size}^2 input, got {tuple(x.shape)}"
         )
@@ -268,11 +288,11 @@ class AdmUnet2d(nn.Module):
         h = x.permute(0, 3, 1, 2).to(self.dtype)
         hs = []
         for block in self.input_blocks:
-            h = block(h, emb)
+            h = block(h, emb, deterministic)
             hs.append(h)
-        h = self.middle_block(h, emb)
+        h = self.middle_block(h, emb, deterministic)
         for block in self.output_blocks:
-            h = block(torch.cat([h, hs.pop()], dim=1), emb)
+            h = block(torch.cat([h, hs.pop()], dim=1), emb, deterministic)
         h = self.out(h.float())
         return h.permute(0, 2, 3, 1)
 

@@ -6,8 +6,10 @@ configs (uncond + cond), seeds or num_samples, class selection, viewsets
 ``uncond``/``random``/``3x9``, and the output tree
 ``{output_dir}/viewset_{v}_steps_u{u}_c{c}_guidance{g}/{scenes,conds,grids,results}``
 with the same file names. ``--ckpt_* random`` draws every parameter from a
-numpy seed (0 for uncond, 1 for cond); any other value is a reference
-PyTorch state-dict file (``.pt``), whose names this port's UNet shares.
+numpy seed (0 for uncond, 1 for cond); any other value is a model or EMA
+file: a JAX package ``.msgpack`` file (a run of the root ``train.py``) or a
+PyTorch state dict (``.pt``: the port's, or the reference's, whose names
+this port's UNet shares).
 
 Besides the JAX CLI's records it writes every scene's npz for the ``random``
 viewset too. Depth grids use the INFERNO colormap, as the JAX CLI's.
@@ -54,18 +56,17 @@ def parse_args(argv=None):
 
 def build_model(cfg, ckpt: str, seed: int, device):
     """Backbone + framework of ``cfg`` with random (``ckpt == "random"``) or
-    checkpoint weights, on ``device``."""
+    checkpoint weights (``.msgpack`` or ``.pt``, see
+    ``training.checkpoint.load_model_state``), on ``device``."""
     from ivid_tpu_torch.config import build_backbone, build_framework_from_config
     from ivid_tpu_torch.models.adm import randomize_parameters
+    from ivid_tpu_torch.training.checkpoint import load_model_state
 
     model = build_backbone(cfg)
     if ckpt == "random":
         randomize_parameters(model, seed)
     else:
-        sd = torch.load(ckpt, map_location="cpu", weights_only=True)
-        # The reference keeps its sinusoid table as a buffer; this port
-        # computes it.
-        model.load_state_dict({k: v for k, v in sd.items() if not k.endswith("freqs")})
+        model.load_state_dict(load_model_state(ckpt, model.arch_args))
     model.to(device).eval()
     return build_framework_from_config(cfg, model, device=device)
 

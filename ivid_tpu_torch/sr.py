@@ -9,7 +9,8 @@ first view) and, with ``--save_scenes``, ``scenes_sr/{name}.npz`` (each view
 lifted to a frustum-skirted mesh, as the sampling pipeline does).
 
 - ``--ckpt_sr random`` draws every parameter from numpy seed 0; any other
-  value is a ``.pt`` state dict (the port's or the reference's).
+  value is a model or EMA file: a ``.pt`` state dict (the port's or the
+  reference's) or a JAX package ``.msgpack`` file.
 - ``--classes mod`` conditions a scene on ``seed % num_classes``, the seed
   parsed from its file name (``sample``'s default class choice); a name
   without ``seed<digits>``, or ``--classes none``, samples without CFG.

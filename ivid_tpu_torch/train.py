@@ -5,8 +5,15 @@ The port of the repo's ``train.py``: a JSON config
 framework and trainer built from their registries, an optional resume
 (``--ckpt STEP`` or ``latest``, from ``--load_dir`` or the run directory),
 and the run directory ``{output_dir}/{config name}`` with ``command.txt``,
-``config.json``, ``log.txt``, ``ckpts/`` and ``samples/``. ``--device``
-(default ``cuda``) picks the device; the CPU runs the kernels' plain versions.
+``config.json``, ``model_summary.txt``, ``log.txt``, ``ckpts/`` and
+``samples/``. ``--device`` (default ``cuda``) picks the device; the CPU runs
+the kernels' plain versions.
+
+``--ckpt`` also resumes a run of the root ``train.py`` (JAX): ``--load_dir``
+its run directory, whose ``ckpts/`` hold ``.msgpack`` files (the trainer's
+``load`` says what carries over); the port's own checkpoints stay ``.pt``.
+``--profile_dir DIR`` runs the first 3 steps (real optimizer steps, counted)
+under torch.profiler and writes a Chrome trace into ``DIR``.
 
 Data parallel, one process per GPU::
 
@@ -42,6 +49,8 @@ def parse_args(argv=None):
     p.add_argument("--num_workers", type=int, default=None, help="loader workers")
     p.add_argument("--worker_mode", choices=["thread", "process"], default=None,
                    help="loader workers as threads or spawned processes")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="trace the first steps with torch.profiler into this directory")
     return p.parse_args(argv)
 
 
@@ -104,6 +113,7 @@ def _train(opt, argv, device, record):
                 print(" ".join(sys.argv if argv is None else ["ivid_tpu_torch.train", *argv]),
                       file=f)
             cfg.save(os.path.join(output_dir, "config.json"))
+            write_summary(os.path.join(output_dir, "model_summary.txt"), model, dataset)
 
         step = opt.ckpt
         if step == "latest":
@@ -112,10 +122,49 @@ def _train(opt, argv, device, record):
             trainer.load(opt.load_dir or output_dir, int(step))
             if is_main:
                 print(f"Resumed from step {trainer.step}")
+        if opt.profile_dir:
+            profile_steps(trainer, opt.profile_dir)
         trainer.run()
     finally:
         trainer.close()
     return trainer
+
+
+def write_summary(path, model, dataset):
+    """``model_summary.txt`` of a batch-1 forward; best-effort, as the root
+    ``train.py``'s: a failure prints a line and training goes on."""
+    from ivid_tpu_torch.utils.summary import model_summary
+
+    s = dataset.image_size
+    example = (torch.zeros((1, s, s, model.in_channels)), torch.zeros((1,), dtype=torch.long),
+               torch.zeros((1,), dtype=torch.long) if model.num_classes else None)
+    try:
+        text = model_summary(model, example)
+    except Exception as e:  # noqa: BLE001 -- the summary must not stop training
+        print(f"model summary failed: {type(e).__name__}: {e}")
+        return
+    with open(path, "w") as f:
+        f.write(text)
+
+
+PROFILED_STEPS = 3
+
+
+def profile_steps(trainer, profile_dir):
+    """:data:`PROFILED_STEPS` optimizer steps under torch.profiler (counted
+    in ``trainer.step``), the trace written into ``profile_dir``."""
+    from ivid_tpu_torch import parallel
+    from ivid_tpu_torch.utils.profiling import trace
+
+    cuda = trainer.device.type == "cuda"
+    with trace(profile_dir, cuda=cuda, rank=parallel.rank()):
+        for _ in range(PROFILED_STEPS):
+            trainer.run_step()
+            trainer.step += 1
+        if cuda:
+            torch.cuda.synchronize(trainer.device)
+    print(f"profiler trace written to {profile_dir} ({PROFILED_STEPS} steps profiled; "
+          f"trainer resumes at step {trainer.step})")
 
 
 if __name__ == "__main__":

@@ -16,7 +16,8 @@ over ``torch.distributed`` (one process per GPU):
   the JAX trainer's steps.
 - A checkpoint holds the model, the EMAs, and the optimizer state, step,
   noise-source state and loader cursor, so a resumed run repeats the loss
-  sequence of an uninterrupted one.
+  sequence of an uninterrupted one. ``load`` also resumes a JAX package
+  run from its ``.msgpack`` files (``load`` says what carries over).
 - The inpaint trainer synthesizes its warp conditioning on the device in
   every step (``training/warp_cond.py``), the warp batched over the batch,
   or, with ``warp_host``, takes it from loader workers that warp on the CPU
@@ -324,19 +325,58 @@ class BasicTrainer:
         ckpt_io.save(ckpt_io.model_path(self.output_dir, self.step), self.model.state_dict())
 
     def load(self, load_dir: str, step: int):
-        """Resume from the checkpoint of ``step`` (every rank reads it)."""
-        self.model.load_state_dict(ckpt_io.load(ckpt_io.model_path(load_dir, step)))
-        misc = ckpt_io.load(ckpt_io.misc_path(load_dir, step))
-        if [float(r) for r in misc["ema_rates"]] != [float(r) for r in self.ema_rate]:
-            raise ValueError(f"checkpoint EMA rates {misc['ema_rates']} != trainer {self.ema_rate}")
-        for i, rate in enumerate(self.ema_rate):
-            ema = ckpt_io.load(ckpt_io.ema_path(load_dir, rate, step))
-            self.ema_params[i] = {k: v.to(self.device) for k, v in ema.items()}
-        self.optimizer.load_state_dict(misc["optimizer"])
-        self.step = int(misc["step"])
-        self.rng.load_state_dict(misc["rng"])
-        self._build_loader(start=misc["loader_pos"])
+        """Resume from the checkpoint of ``step`` (every rank reads it): the
+        port's ``.pt`` files, or a JAX package run's ``.msgpack`` files
+        (:meth:`_load_jax`)."""
+        if ckpt_io.step_suffix(load_dir, step) == ckpt_io.MSGPACK:
+            self._load_jax(load_dir, step)
+        else:
+            self.model.load_state_dict(ckpt_io.load(ckpt_io.model_path(load_dir, step)))
+            misc = ckpt_io.load(ckpt_io.misc_path(load_dir, step))
+            self._check_ema_rates(misc["ema_rates"])
+            for i, rate in enumerate(self.ema_rate):
+                ema = ckpt_io.load(ckpt_io.ema_path(load_dir, rate, step))
+                self.ema_params[i] = {k: v.to(self.device) for k, v in ema.items()}
+            self.optimizer.load_state_dict(misc["optimizer"])
+            self.step = int(misc["step"])
+            self.rng.load_state_dict(misc["rng"])
+            self._build_loader(start=misc["loader_pos"])
         parallel.check_replication(self.model.named_parameters())
+
+    def _check_ema_rates(self, rates):
+        if [float(r) for r in rates] != [float(r) for r in self.ema_rate]:
+            raise ValueError(f"checkpoint EMA rates {list(rates)} != trainer {self.ema_rate}")
+
+    def _load_jax(self, load_dir: str, step: int):
+        """Resume a JAX package run: the model and every EMA copy, AdamW's
+        moments and step (optax's ``mu``, ``nu`` and ``count``), the step
+        and the loader's cursor. The JAX PRNG key cannot continue as the
+        port's noise: the noise source becomes a :class:`KeyedNoise`
+        derived from the key's two words (``KeyedNoise.from_jax_key``), so
+        the resumed run's draws are the port's own, the same on every
+        resume of that file, not the JAX run's."""
+        arch = self.model.arch_args
+        self.model.load_state_dict(ckpt_io.load_model_state(
+            ckpt_io.model_path(load_dir, step, ckpt_io.MSGPACK), arch))
+        misc = ckpt_io.read_jax_misc(ckpt_io.misc_path(load_dir, step, ckpt_io.MSGPACK), arch)
+        self._check_ema_rates(misc["ema_rates"])
+        for i, rate in enumerate(self.ema_rate):
+            ema = ckpt_io.load_model_state(
+                ckpt_io.ema_path(load_dir, rate, step, ckpt_io.MSGPACK), arch)
+            self.ema_params[i] = {k: ema[k].to(self.device) for k in self.params}
+        self.optimizer.state.clear()
+        for k, p in self.params.items():
+            self.optimizer.state[p] = {
+                "step": torch.tensor(float(misc["adam_step"]), dtype=torch.float32),
+                "exp_avg": misc["exp_avg"][k].to(p.device),
+                "exp_avg_sq": misc["exp_avg_sq"][k].to(p.device),
+            }
+        self.step = misc["step"]
+        self.rng = KeyedNoise.from_jax_key(misc["rng"], self.device)
+        if self.is_main:
+            print(f"JAX PRNG key {misc['rng']} of {load_dir} step {step}: noise continues "
+                  "from a KeyedNoise derived from it (the port's draws, not the JAX run's)")
+        self._build_loader(start=misc["loader_pos"])
 
     # ---- sample grids ----
 
@@ -436,7 +476,10 @@ class FinetuneMixin:
     channels, zero-padded to the model's."""
 
     def finetune_from(self, finetune_ckpt: str):
-        state = ckpt_io.finetune_load(finetune_ckpt, self.model.state_dict())
+        """``finetune_ckpt``: a model or EMA file, the port's ``.pt``, a
+        reference state dict or the JAX package's ``.msgpack``."""
+        state = ckpt_io.finetune_load(finetune_ckpt, self.model.state_dict(),
+                                      self.model.arch_args)
         self.model.load_state_dict(state)
         with torch.no_grad():
             for ema in self.ema_params:

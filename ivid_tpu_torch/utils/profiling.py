@@ -1,0 +1,27 @@
+"""A torch.profiler trace around a region: the port's counterpart of
+``ivid_tpu/utils/profiling.py``'s ``trace`` (``train.py --profile_dir``).
+The trainer's ``StepRecord`` takes the place of its ``StepTimer``."""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Iterator
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, cuda: bool = False, rank: int = 0) -> Iterator[None]:
+    """Profile the enclosed region with torch.profiler (CPU activity, and
+    the CUDA device's with ``cuda``), then write a Chrome trace,
+    ``{log_dir}/trace_rank{rank}_{time}.json``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_rank{rank}_{stamp}.json"))

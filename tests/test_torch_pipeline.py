@@ -200,7 +200,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(ivid_tpu_torch.__path__, 'ivid_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ivid_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ivid_tpu', 'msgpack'))\n"
         "assert not bad, bad\n"
         "assert 'ivid_tpu_torch.sample' in sys.modules\n"
         "assert 'ivid_tpu_torch.sr' in sys.modules\n"
@@ -211,7 +211,7 @@ def test_port_imports_no_jax():
         "assert 'ivid_tpu_torch.eval' in sys.modules\n"
         "assert 'ivid_tpu_torch.evals.inception' in sys.modules\n"
         "for m in ('data.native', 'data.imagenet', 'data.single_category', 'data.warp_host',\n"
-        "          'parallel'):\n"
+        "          'parallel', 'training.flax_msgpack', 'utils.summary', 'utils.profiling'):\n"
         "    assert 'ivid_tpu_torch.' + m in sys.modules, m\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
