@@ -101,7 +101,31 @@ Phases, each printing its own lines; any failure exits non-zero:
     4-input checkpoint written by the phase);
 15. the model-level A/B (``ivid_tpu_torch.bench_unet``): the flagship
     uncond step at batch 10 and its training step at 16, with the attention
-    sites on K1/K4 f32, the plain version and SDPA, in turns.
+    sites on K1/K4 f32, the plain version and SDPA, in turns;
+16. ``[tp train]``: ``train.main`` on two ranks of ``torch.distributed.run``
+    sharing the card over gloo (``--device cuda:0 --distributed
+    --model_parallel 2``) with the flagship cond config (InpaintTrainer,
+    bf16 torso, SyntheticRGBDWarp 128² with 1000 classes), global batch 8,
+    3 AdamW steps, the replication check after every step; then the same
+    run at world size 1 on the card. The losses and the step-3 parameters
+    and EMA are held to each other, the ranks' shards must differ; per rank
+    the K1/K4 launches, the qkv widths K1 read (768 on a TP rank, 1536 at
+    world size 1), step ms and peak memory;
+17. ``[dp sample]``: ``sample.main --data_parallel`` on two such ranks, the
+    flagship pair (seeded weights), random viewset (seeded orbit), seeds
+    0-3 at batch 4, DDIM 50 + guided DDIM 10; then world size 1. Each
+    scene's views and condition masks are held to each other; per rank the
+    K1/K2 launches and the wall time;
+18. ``[graft]``: ``graft_entry.entry()``'s flagship forward once on the
+    card, then ``graft_entry.dryrun_multichip(2, "cuda:0")`` (one training
+    step of a small UNet on a data 1 x model 2 mesh of two gloo ranks).
+
+The ranks of 16 and 17 run this script as ``chip_smoke.py --rank-worker
+KIND OUT -- ARGV``: ``train.main`` or ``sample.main`` with the launch
+counters read around it, each rank's counts and times written to
+``OUT/rank{R}.json``. Two ranks on one card over gloo carry every
+activation reduction through the host: their times say that the paths run,
+not how they scale.
 
 After 3, K2 at the free-view render's shapes (``[K2 640]``: 27 slots of
 128² views at 640², a ``3x9`` scene at SSAA 5; ``[K2 1280]``: 2 slots of
@@ -116,12 +140,13 @@ and seeded images) and 64 real seeded 128² PNGs with ``randconv`` and with
 ``inception:`` a seeded state dict, on the card and on the CPU (the metrics
 must agree), and each extractor's images/s on the card.
 
-Each main path (the benches of 5, and 10, 10b, 11, 12c, 13, 14, 15, the SR runs
-of 13 and 14, the render runs) runs with every launch
+Each main path (the benches of 5, and 10, 10b, 11, 12c, 13, 14, 15, 16, 17, 18,
+the SR runs of 13 and 14, the render runs) runs with every launch
 counter set to 0 just before it and read just after. Then one JSON line
 with every kernel's numbers, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
-Without a CUDA device it exits non-zero and prints no result.
+Without a CUDA device it exits non-zero and prints no result. Every phase
+logs its wall seconds and the script's running total (``[time]`` lines).
 
 Times (``ivid_tpu_torch.timing``): a kernel's ``ms`` and the library call's
 ``library_ms`` are device time, the durations torch.profiler records for
@@ -133,6 +158,7 @@ calls, which measure the host's issue time whenever that is longer.
 ``plain_ms`` and the prep times are CUDA events.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -141,6 +167,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 UNCOND_CFG = os.path.join(ROOT, "configs", "rgbd_singlecategory_adm_128_small.json")
 COND_CFG = os.path.join(ROOT, "configs", "rgbd_singlecategory_adm_128_small_cond.json")
@@ -212,6 +239,42 @@ RENDER_LEVELS, RENDER_OFF_SHARE = 1, 0.01
 # its mean: its spread over subsets that are the whole set is ~0); IS is
 # computed from f32 logits in f32, absolutely.
 EVAL_REL, EVAL_IS_ABS = 1e-3, 1e-4
+
+# [tp train]: two TP ranks vs world size 1, bf16 torso, both from the same
+# seeded random weights (adm.randomize_parameters through the trainer's
+# finetune_ckpt: every layer reaches the output, so the losses and every
+# layer's gradient see a layout fault from the first step). The runs differ
+# only where a row-parallel layer's two bf16 partial sums are rounded and
+# then summed (one rounding at world size 1), and where cuDNN picks other
+# algorithms for the halved channel counts: ~2^-8 relative on those
+# activations, compounded over the torso's ~60 layers forward and back.
+# The loss, a mean over 8·128²·4 squared errors, moves by far less
+# (TP_LOSS_REL; measured on the H100: 6.1e-5 at most). AdamW's first step
+# is lr·sign(g), its next ones depend on the ratios of the steps'
+# gradients, so the update carries the gradients' relative rounding
+# (measured: 2.9e-2 of the 3 steps' update in L2, 1.3e-3 of the elements
+# apart by more than lr/2, the worst tensor of >= TP_TENSOR_MIN elements
+# 5.1e-2, the replicated class embedding, whose update is 8 rows). The
+# bounds sit 3-4x above those readings; a layout fault gives a wrong
+# gradient to the tensors it touches and moves each of them by O(1) of its
+# update (TP_TENSOR_REL), and a fault that moves the output by a few
+# percent moves the loss past TP_LOSS_REL. The EMA (rate r = 0.9999, from
+# the same start) takes (1 - r) of each step's parameters, which differ by
+# at most the final |Δp| plus the later steps' differences (a bias-corrected
+# AdamW step of steps 1-3 is within 1.004·lr, so two runs' steps differ by
+# at most ~2·lr): per element (1 - r)·(3·|Δp| + 7·lr), plus its own f32
+# rounding, two roundings a step, each at most one ulp apart between the
+# runs (TP_EMA_ULPS = 6 over 3 steps).
+TP_LOSS_REL, TP_UPDATE_REL, TP_TENSOR_REL, TP_TENSOR_MIN = 1e-3, 1e-1, 2e-1, 4096
+TP_FLIP_SHARE, TP_EMA_ULPS = 5e-3, 6
+# [dp sample]: two ranks of batch 2 vs one of batch 4 on the card, both with
+# PyTorch's default precision flags (cuDNN convolutions in TF32, matmuls in
+# f32). Every row is computed alone, but cuDNN may pick other algorithms at
+# the other batch, so the roundings differ: TF32's 2^-11 (1/8 of bf16's) in
+# the f32 first view, carried through 50 DDIM steps of a random-weight
+# model, DP_F32_REL of its norm; the bf16-torso cond view within SR_BF16_REL;
+# a condition-mask pixel flips only on a knife edge (CHAIN_MASK_FRAC).
+DP_F32_REL = 5e-3
 
 # The card's memory rate (NVIDIA H100 SXM data sheet) for the bytes bounds;
 # the attention bounds take their peaks from ivid_tpu_torch.bench_attention.
@@ -1602,6 +1665,7 @@ def reset_counts():
 
     attention.launches = attention.bwd_launches = 0
     attention.f32_launches = attention.bwd_f32_launches = 0
+    attention.width_launches.clear()
     raster_dense.launches = raster_dense.bin_launches = raster_tiled.launches = 0
     raster_dense.sync_s = 0.0
     resolve_variants.binned_launches = resolve_variants.tile_launches = 0
@@ -2252,6 +2316,335 @@ def phase_train_files(root, steps=4, device="cuda"):
     return counts
 
 
+def launch_ranks(kind, argv, nproc=2, timeout=600):
+    """``torch.distributed.run`` of ``nproc`` ranks of this script's rank
+    worker (``--rank-worker KIND``) with ``argv``; fails if a rank fails.
+    Returns each rank's report and the launcher's wall seconds."""
+    import subprocess
+
+    import torch
+
+    torch.cuda.empty_cache()  # leave the card's memory to the ranks
+    out = tempfile.mkdtemp(prefix=f"chip_smoke_{kind}_ranks_")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", os.path.abspath(__file__), "--rank-worker", kind, out,
+           "--", *argv]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]),
+               OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+        raise RuntimeError(f"[{kind}] torch.distributed.run failed with exit code "
+                           f"{proc.returncode}")
+    reports = []
+    for r in range(nproc):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports, out, wall
+
+
+def default_precision():
+    """PyTorch's default precision flags, which a fresh process (a rank of
+    ``launch_ranks``) runs with: cuDNN convolutions in TF32, matmuls in f32.
+    Earlier phases set them otherwise."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def seeded_orbit(seed=0):
+    """The ``random`` viewset's orbit drawn from a seeded generator (the
+    sampling CLI draws it unseeded), so that two sampling runs take the same
+    one."""
+    import numpy as np
+
+    from ivid_tpu_torch.inference import viewsets
+
+    build = viewsets.build_viewset
+    viewsets.build_viewset = lambda name, n: build(name, n, np.random.default_rng(seed))
+    try:
+        yield
+    finally:
+        viewsets.build_viewset = build
+
+
+def rank_worker(kind, out, argv):
+    """One rank of ``[tp train]`` (``train.main(argv)``) or ``[dp sample]``
+    (``sample.main(argv)``): the launch counters set to 0 before and read
+    after, the counts, times and peak memory (this process's, on card 0)
+    written to ``out/rank{RANK}.json``."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch.ops import attention
+
+    rank = int(os.environ["RANK"])
+    reset_counts()
+    t0 = time.perf_counter()
+    report = {"rank": rank}
+    if kind == "tp_train":
+        from ivid_tpu_torch import train
+        from ivid_tpu_torch.training.trainer import StepRecord
+
+        rec = StepRecord(timing=True)
+        tr = train.main(argv, record=rec)
+        torch.cuda.synchronize()
+        report.update(
+            losses=[float(x) for x in rec.losses],
+            step_ms=[m["step"] for m in rec.stage_ms()],
+            mesh=[tr.data_size, tr.groups.model_size],
+            shards={k: [s.dim, s.halves] for k, s in tr.tp_specs.items()},
+            shard_crc={k: zlib.crc32(p.detach().cpu().numpy().tobytes())
+                       for k, p in tr.model.named_parameters() if k in tr.tp_specs})
+    elif kind == "dp_sample":
+        from ivid_tpu_torch import sample
+
+        with seeded_orbit():
+            res = sample.main(argv)
+        torch.cuda.synchronize()
+        np.save(os.path.join(out, f"rank{rank}_samples.npy"), np.concatenate(res["samples"]))
+        np.save(os.path.join(out, f"rank{rank}_masks.npy"),
+                np.concatenate([c["depth"] > -1 for c in res["conds"]]))
+        report["stage_ms"] = res["stage_ms"]
+    else:
+        raise ValueError(f"no rank worker {kind!r}")
+    report.update(wall_s=time.perf_counter() - t0, counts=read_counts(),
+                  k1_widths={str(k): v for k, v in attention.width_launches.items()},
+                  peak_gib=torch.cuda.max_memory_allocated(0) / 2 ** 30)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def phase_tp_train(steps=3):
+    """``[tp train]``: the flagship cond model on 2 TP ranks sharing the card
+    (gloo) against world size 1, global batch 8, ``steps`` AdamW steps, both
+    from the same seeded random weights. Returns rank 0's launch counts."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch import train
+    from ivid_tpu_torch.config import Config, build_backbone
+    from ivid_tpu_torch.models.adm import randomize_parameters
+    from ivid_tpu_torch.ops import attention
+    from ivid_tpu_torch.parallel import tensor as tp
+    from ivid_tpu_torch.training import checkpoint as ckpt_io
+    from ivid_tpu_torch.training.trainer import StepRecord
+
+    with open(FLAGSHIP_COND) as f:
+        cfg = json.load(f)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_train_")
+    t0 = time.perf_counter()
+    start = randomize_parameters(build_backbone(Config.load(FLAGSHIP_COND)), 12).state_dict()
+    weights = os.path.join(tmp, "random_weights.pt")
+    ckpt_io.save(weights, start)
+    log(f"[tp train] seeded random weights ({sum(v.numel() for v in start.values()) / 1e6:.1f}M "
+        f"parameters) written in {time.perf_counter() - t0:.1f} s")
+    args = cfg["dataset"]["args"]
+    cfg["dataset"] = {"name": "SyntheticRGBDWarp", "args": dict(args, num_classes=1000,
+                                                                length=64)}
+    cfg["trainer"]["args"].update(max_steps=steps, batch_size_per_gpu=8, i_save=steps,
+                                  i_log=steps, i_ddpcheck=1, i_sample=10 ** 9,
+                                  sample_at_init=False, num_workers=2, finetune_ckpt=weights)
+    lr = float(cfg["trainer"]["args"]["learning_rate"])
+    path = os.path.join(tmp, os.path.basename(FLAGSHIP_COND))
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    name = os.path.splitext(os.path.basename(FLAGSHIP_COND))[0]
+    reports, _, launch_wall = launch_ranks("tp_train", [
+        "--config", path, "--output_dir", os.path.join(tmp, "tp"), "--device", "cuda:0",
+        "--distributed", "--model_parallel", "2"])
+    for r in reports:
+        log(f"[tp train] rank {r['rank']} of 2 (mesh data {r['mesh'][0]} x model {r['mesh'][1]}, "
+            f"gloo on cuda:0): {len(r['losses'])} steps, losses "
+            f"{np.round(r['losses'], 6).tolist()}; ms per step (CUDA events) "
+            f"{np.round(r['step_ms'], 2).tolist()}; peak memory {r['peak_gib']:.2f} GiB; K1 "
+            f"{r['counts']['K1']}, K4 {r['counts']['K4']}, K2 {r['counts']['K2']}, K3 "
+            f"{r['counts']['K3']}; K1 launches by qkv width {r['k1_widths']}; "
+            f"{len(r['shards'])} parameters sharded; wall {r['wall_s']:.1f} s")
+    default_precision()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rec = StepRecord(timing=True)
+    t0 = time.perf_counter()
+    one = train.main(["--config", path, "--output_dir", os.path.join(tmp, "one"), "--device",
+                      "cuda"], record=rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, widths = read_counts(), dict(attention.width_launches)
+    losses = [float(x) for x in rec.losses]
+    log(f"[tp train] world size 1: losses {np.round(losses, 6).tolist()}; ms per step (CUDA "
+        f"events) {[round(m['step'], 2) for m in rec.stage_ms()]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K1 {counts['K1']}, K4 "
+        f"{counts['K4']}; K1 launches by qkv width {widths}; wall {wall:.1f} s (the two ranks' "
+        f"launcher {launch_wall:.1f} s, with their start)")
+    del one
+    tp_dir, one_dir = os.path.join(tmp, "tp", name), os.path.join(tmp, "one", name)
+    got = {"model": ckpt_io.load(ckpt_io.model_path(tp_dir, steps)),
+           "ema": ckpt_io.load(ckpt_io.ema_path(tp_dir, 0.9999, steps))}
+    want = {"model": ckpt_io.load(ckpt_io.model_path(one_dir, steps)),
+            "ema": ckpt_io.load(ckpt_io.ema_path(one_dir, 0.9999, steps))}
+    same_layout = (got["model"].keys() == want["model"].keys() == start.keys()
+                   and all(got["model"][k].shape == v.shape for k, v in want["model"].items()))
+    if not same_layout:
+        raise RuntimeError("[tp train] the TP run's checkpoint differs in names or shapes")
+    keys = list(want["model"])
+    flat = lambda d: torch.cat([d[k].float().reshape(-1) for k in keys])
+    p0, a, b = flat(start), flat(got["model"]), flat(want["model"])
+    update_rel = float((a - b).norm() / (b - p0).norm())
+    flips = float(((a - b).abs() > lr / 2).float().mean())
+    tensor_rel = {k: float((got["model"][k].float() - want["model"][k].float()).norm()
+                           / (want["model"][k].float() - start[k].float()).norm())
+                  for k in keys if start[k].numel() >= TP_TENSOR_MIN}
+    top = sorted(tensor_rel, key=tensor_rel.get, reverse=True)
+    worst = top[0]
+    ema_b = flat(want["ema"])
+    ema_over = float(((flat(got["ema"]) - ema_b).abs() - 1e-4 * (3 * (a - b).abs() + 7 * lr)
+                      - TP_EMA_ULPS * 2.0 ** -23 * ema_b.abs()).max())
+    loss_rel = [abs(x - y) / abs(y) for x, y in zip(reports[0]["losses"], losses)]
+    # Each rank holds its slices of the full tensors that rank 0 saved, and
+    # the slices of random weights differ between the ranks.
+    crc = [r["shard_crc"] for r in reports]
+    specs = {k: tp.Shard(*v) for k, v in reports[0]["shards"].items()}
+    slices = sum(zlib.crc32(tp.shard_tensor(got["model"][k], s, r, 2).numpy().tobytes())
+                 == crc[r][k] for k, s in specs.items() for r in (0, 1))
+    differ = sum(crc[0][k] != crc[1][k] for k in crc[0])
+    log(f"[tp train] TP 2 vs world size 1 at step {steps}: losses rel "
+        f"{[float(f'{x:.3e}') for x in loss_rel]} (bound {TP_LOSS_REL}); parameters "
+        f"{update_rel:.3e} of the {steps} steps' update (L2, bound {TP_UPDATE_REL}), worst "
+        f"tensor {worst} {tensor_rel[worst]:.3e} (bound {TP_TENSOR_REL}, {len(tensor_rel)} "
+        f"tensors of >= {TP_TENSOR_MIN} elements; next "
+        + ", ".join(f"{k}{' (sharded)' if k in specs else ''} {tensor_rel[k]:.3e}"
+                    for k in top[1:6])
+        + f"; median {float(np.median(list(tensor_rel.values()))):.3e}), {flips:.3e} of "
+        f"elements apart by more than lr/2 (bound {TP_FLIP_SHARE}), max abs "
+        f"{float((a - b).abs().max()):.3e}; EMA's largest excess over 1e-4·(3·|Δp| + 7·lr) + "
+        f"{TP_EMA_ULPS} ulps {ema_over:.3e} (bound 0); {slices} of {2 * len(specs)} rank "
+        f"shards equal their slices of the saved tensors; {differ} of {len(crc[0])} shards "
+        f"differ between the model ranks")
+    ok = (all(len(r["losses"]) == steps and r["mesh"] == [1, 2] for r in reports)
+          and reports[0]["losses"] == reports[1]["losses"] and len(losses) == steps
+          and all(np.isfinite(losses)) and max(loss_rel) <= TP_LOSS_REL
+          and update_rel <= TP_UPDATE_REL and tensor_rel[worst] <= TP_TENSOR_REL
+          and flips <= TP_FLIP_SHARE and ema_over <= 0
+          and reports[0]["shards"] == reports[1]["shards"] and len(specs) > 0
+          and slices == 2 * len(specs) and differ == len(specs)
+          and counts["K1"] == counts["K4"] == 5 * steps and widths == {1536: 5 * steps}
+          and all(r["counts"]["K1"] == r["counts"]["K4"] == 5 * steps
+                  and r["k1_widths"] == {"768": 5 * steps} and r["counts"]["K3"] == 2 * steps
+                  and r["counts"]["K2"] >= steps for r in reports))
+    if not ok:
+        raise RuntimeError("[tp train] failed its checks")
+    return reports[0]["counts"]
+
+
+def phase_dp_sample():
+    """``[dp sample]``: ``sample.main --data_parallel`` on 2 ranks sharing the
+    card (gloo) against world size 1: the flagship pair, 4 scenes at batch
+    4, DDIM 50 + guided DDIM 10. Returns rank 0's launch counts."""
+    import numpy as np
+
+    from ivid_tpu_torch import sample
+
+    argv = ["--config_uncond", FLAGSHIP_UNCOND, "--config_cond", FLAGSHIP_COND,
+            "--ckpt_uncond", "random", "--ckpt_cond", "random", "--seeds", "0-3",
+            "--viewset", "random", "--batchsize", "4",
+            "--steps_uncond", "50", "--steps_cond", "10"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_sample_")
+    reports, rank_dir, launch_wall = launch_ranks("dp_sample", argv + [
+        "--output_dir", os.path.join(tmp, "dp"), "--device", "cuda:0", "--data_parallel"])
+    default_precision()
+    for r in reports:
+        log(f"[dp sample] rank {r['rank']} of 2 (gloo on cuda:0, scenes {2 * r['rank']}-"
+            f"{2 * r['rank'] + 1}): wall {r['wall_s']:.2f} s; stages (CUDA events) "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in r["stage_ms"].items())
+            + f"; launches K1 {r['counts']['K1']} (f32 {r['counts']['K1 f32']}), K2 "
+            f"{r['counts']['K2']}; peak memory {r['peak_gib']:.2f} GiB")
+    reset_counts()
+    t0 = time.perf_counter()
+    with seeded_orbit():
+        one = sample.main(argv + ["--output_dir", os.path.join(tmp, "one"), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = np.concatenate(one["samples"])
+    want_mask = np.concatenate([c["depth"] > -1 for c in one["conds"]])
+    got = np.concatenate([np.load(os.path.join(rank_dir, f"rank{r}_samples.npy"))
+                          for r in (0, 1)])
+    got_mask = np.concatenate([np.load(os.path.join(rank_dir, f"rank{r}_masks.npy"))
+                               for r in (0, 1)])
+    rel = lambda x, y: float(np.linalg.norm(x - y) / np.linalg.norm(y))
+    first = max(rel(got[i, 0], want[i, 0]) for i in range(4))
+    second = max(rel(got[i, 1], want[i, 1]) for i in range(4))
+    flips = float((got_mask != want_mask).mean())
+    names = lambda d: sorted(os.listdir(os.path.join(d, os.listdir(d)[0], "scenes")))
+    same_files = names(os.path.join(tmp, "dp")) == names(os.path.join(tmp, "one"))
+    log(f"[dp sample] world size 1: wall {wall:.2f} s (the two ranks' launcher "
+        f"{launch_wall:.2f} s, with their start); launches K1 {counts['K1']} (f32 "
+        f"{counts['K1 f32']}), K2 {counts['K2']}")
+    log(f"[dp sample] 2 ranks vs 1, per scene: first view max rel L2 {first:.3e} (bound "
+        f"{DP_F32_REL}), second view {second:.3e} (bound {SR_BF16_REL}); condition-mask pixels "
+        f"differing {flips:.5f} (bound {CHAIN_MASK_FRAC}); the same scene files {same_files}")
+    ok = (got.shape == want.shape == (4, 2, 128, 128, 4) and np.isfinite(got).all()
+          and first <= DP_F32_REL and second <= SR_BF16_REL and flips <= CHAIN_MASK_FRAC
+          and same_files
+          and all(r["counts"]["K1"] == counts["K1"] and r["counts"]["K1 f32"] == counts["K1 f32"]
+                  and r["counts"]["K2"] == counts["K2"] >= 1 for r in reports))
+    if not ok:
+        raise RuntimeError("[dp sample] failed its checks")
+    return reports[0]["counts"]
+
+
+def phase_graft():
+    """``[graft]``: ``graft_entry.entry()``'s flagship forward on the card,
+    then ``dryrun_multichip(2, "cuda:0")``. Returns the forward's counts."""
+    import torch
+
+    from ivid_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry("cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    finite = bool(torch.isfinite(out).all())
+    del fn, args
+    t0 = time.perf_counter()
+    line = graft_entry.dryrun_multichip(2, "cuda:0")
+    dry = time.perf_counter() - t0
+    log(f"[graft] entry(): flagship forward at batch 2 {tuple(out.shape)} finite {finite}, "
+        f"{ms:.1f} ms with its first launches; launches {counts}; dryrun_multichip(2, cuda:0) "
+        f"in {dry:.1f} s: {line}")
+    if not (finite and tuple(out.shape) == (2, 128, 128, 4) and counts["K1 f32"] == 5
+            and line.startswith("dryrun_multichip: mesh={'data': 1, 'model': 2} loss=")
+            and line.endswith(" OK")):
+        raise RuntimeError("[graft] failed its checks")
+    return counts
+
+
+def run_phase(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, then a ``[time]`` line with its wall seconds
+    and the script's running total, so that the script's budget can be read
+    phase by phase."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        now = time.perf_counter()
+        log(f"[time] {fn.__name__}: {now - t0:.1f} s (script at {now - T_START:.1f} s)")
+
+
 def free_port():
     import socket
 
@@ -2266,46 +2659,55 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    smi = phase_device()
-    k1 = phase_attention(2, 0, training=False)
-    k1_train = phase_attention(8, 3, training=True)
+    if sys.argv[1:2] == ["--rank-worker"]:
+        kind, out, sep, *argv = sys.argv[2:]
+        if sep != "--":
+            raise SystemExit("usage: chip_smoke.py --rank-worker KIND OUT -- ARGV")
+        return rank_worker(kind, out, argv)
+    smi = run_phase(phase_device)
+    k1 = run_phase(phase_attention, 2, 0, training=False)
+    k1_train = run_phase(phase_attention, 8, 3, training=True)
     # The SR cascade's sampling shapes (a chunk of 2 views with CFG: batch 4;
     # T=4096 with 4 heads, T=1024 with 6), checked and timed in bf16.
-    k1["other_shapes"] = [phase_attention(4, 5, False, t=4096, time_f32=False),
-                          phase_attention(4, 6, False, heads=6, time_f32=False)]
-    k2 = phase_raster()
-    k2_render = phase_raster_render()
-    k3, warp_inputs, r = phase_resolve()
-    skirt8, skirt1 = phase_skirt(warp_inputs, r)
-    k6 = phase_tile(warp_inputs, r)
+    k1["other_shapes"] = [run_phase(phase_attention, 4, 5, False, t=4096, time_f32=False),
+                          run_phase(phase_attention, 4, 6, False, heads=6, time_f32=False)]
+    k2 = run_phase(phase_raster)
+    k2_render = run_phase(phase_raster_render)
+    k3, warp_inputs, r = run_phase(phase_resolve)
+    skirt8, skirt1 = run_phase(phase_skirt, warp_inputs, r)
+    k6 = run_phase(phase_tile, warp_inputs, r)
     del warp_inputs
-    k5 = phase_binned()
-    benches = phase_benches()
-    k4 = phase_attention_backward()
+    k5 = run_phase(phase_binned)
+    benches = run_phase(phase_benches)
+    k4 = run_phase(phase_attention_backward)
     # The SR trainer's shapes (micro-batch 2).
-    k4["other_shapes"] = [phase_attention_backward(2, 4096, 4, seed=7, time_f32=False),
-                          phase_attention_backward(2, 1024, 6, seed=8, time_f32=False)]
-    k1_f32, k4_f32 = phase_f32_attention()
-    phase_unet()
-    phase_flagship_unet()
-    sr_sites = phase_sr_unet()
-    phase_chain()
-    phase_sr_chain()
-    phase_train_chain()
-    sampling = phase_pipeline()
-    ckpt_sampling_counts, ckpt_resume_counts = phase_ckpt_migrate()
-    training, trainer = phase_train()
-    phase_train_profile(trainer)
+    k4["other_shapes"] = [
+        run_phase(phase_attention_backward, 2, 4096, 4, seed=7, time_f32=False),
+        run_phase(phase_attention_backward, 2, 1024, 6, seed=8, time_f32=False)]
+    k1_f32, k4_f32 = run_phase(phase_f32_attention)
+    run_phase(phase_unet)
+    run_phase(phase_flagship_unet)
+    sr_sites = run_phase(phase_sr_unet)
+    run_phase(phase_chain)
+    run_phase(phase_sr_chain)
+    run_phase(phase_train_chain)
+    sampling = run_phase(phase_pipeline)
+    ckpt_sampling_counts, ckpt_resume_counts = run_phase(phase_ckpt_migrate)
+    training, trainer = run_phase(phase_train)
+    run_phase(phase_train_profile, trainer)
     del trainer
-    file_training = phase_train_files(phase_data_files())
-    flagship_sampling, flagship_scenes = phase_flagship_pipeline()
-    sr_sampling, sr_dir = phase_sr(flagship_scenes, sr_sites)
-    rendering, frames = phase_render(flagship_scenes, sr_dir)
-    phase_eval(frames)
+    file_training = run_phase(phase_train_files, run_phase(phase_data_files))
+    flagship_sampling, flagship_scenes = run_phase(phase_flagship_pipeline)
+    sr_sampling, sr_dir = run_phase(phase_sr, flagship_scenes, sr_sites)
+    rendering, frames = run_phase(phase_render, flagship_scenes, sr_dir)
+    run_phase(phase_eval, frames)
     del frames
-    flagship_training, _ = phase_flagship_train()
-    sr_training, _ = phase_sr_train(sr_sites)
-    phase_flagship_ab()
+    flagship_training, _ = run_phase(phase_flagship_train)
+    sr_training, _ = run_phase(phase_sr_train, sr_sites)
+    run_phase(phase_flagship_ab)
+    tp_training = run_phase(phase_tp_train)
+    dp_sampling = run_phase(phase_dp_sample)
+    graft = run_phase(phase_graft)
     # ``launches``: the count of the path each kernel entry's shape stands
     # for (K1 at batch 2 and K2 on grids: sampling; the other entries:
     # training; K2 at B=1 is on neither path: the trainer warps the whole
@@ -2349,6 +2751,18 @@ def main():
         entry["launches"] = sr_training["K4"]
         entry["launches_by_path"] = {"sr sampling": sr_sampling["K4"],
                                      "sr training": sr_training["K4"]}
+    # The parallel paths: rank 0's counts (each rank launches as many); the
+    # bf16 entries count the bf16 launches (the flagship uncond model is f32).
+    for entry, key in ((k1, "K1"), (k1_train, "K1"), (k4, "K4")):
+        entry["launches_by_path"].update({
+            "tp train (rank 0)": tp_training[key] - tp_training[key + " f32"],
+            "dp sample (rank 0)": dp_sampling[key] - dp_sampling[key + " f32"]})
+    for entry, key in ((k1_f32, "K1 f32"), (k4_f32, "K4 f32")):
+        entry["launches_by_path"].update({"dp sample (rank 0)": dp_sampling[key],
+                                          "graft entry": graft[key]})
+    k2["launches_by_path"]["dp sample (rank 0)"] = dp_sampling["K2"]
+    for entry, key in ((k3, "K3"), (skirt8, "K2")):
+        entry["launches_by_path"]["tp train (rank 0)"] = tp_training[key]
     # K5 and K6: the count of the bench runs, their only path.
     for entry, key in ((k5, "K5"), (k6, "K6")):
         entry["launches"] = benches[key]

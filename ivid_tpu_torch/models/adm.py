@@ -146,9 +146,21 @@ class ResBlock(nn.Module):
         return self.skip_connection(x) + conv(h)
 
 
+class TokenConv1d(nn.Conv1d):
+    """A 1x1 ``Conv1d`` (the reference's ``[out, in, 1]`` parameters) applied
+    to token-major ``[B, T, in]`` input in its type: f32 parameters cast per
+    call."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight[:, :, 0].to(x.dtype), self.bias.to(x.dtype))
+
+
 class AttentionBlock(nn.Module):
     """Global spatial self-attention over a packed qkv projection with an f32
-    softmax; q and k are each scaled by ``1/sqrt(sqrt(D))``."""
+    softmax; q and k are each scaled by ``1/sqrt(sqrt(D))``. ``heads`` is the
+    count this module computes: under tensor parallelism
+    (``parallel/tensor.py``) its share of the block's heads, whose qkv
+    columns it holds."""
 
     def __init__(self, channels, num_groups=32, num_heads=1, num_head_channels=-1):
         super().__init__()
@@ -159,33 +171,32 @@ class AttentionBlock(nn.Module):
             self.heads = channels // num_head_channels
         else:
             self.heads = num_heads
+        self.head_dim = channels // self.heads
         self.norm = GroupNorm32(num_groups, channels)
-        self.qkv = nn.Conv1d(channels, 3 * channels, 1)
-        self.proj_out = nn.Conv1d(channels, channels, 1)
+        self.qkv = TokenConv1d(channels, 3 * channels, 1)
+        self.proj_out = TokenConv1d(channels, channels, 1)
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
 
     def uses_kernel(self, tokens: int) -> bool:
         """Whether an input of ``tokens`` positions goes through the packed
         kernel (the JAX package's choice: T >= 512 and 64-wide heads)."""
-        return tokens >= 512 and self.norm.num_channels // self.heads == attn_ops.HEAD_DIM
+        return tokens >= 512 and self.head_dim == attn_ops.HEAD_DIM
 
     def forward(self, x):
         b, c, hh, ww = x.shape
         t = hh * ww
-        head_dim = c // self.heads
         tokens = x.reshape(b, c, t).transpose(1, 2)
         normed = self.norm(x).reshape(b, c, t).transpose(1, 2)
-        dt = normed.dtype
-        qkv = F.linear(normed, self.qkv.weight[:, :, 0].to(dt), self.qkv.bias.to(dt)).contiguous()
-        scale = float(1.0 / np.sqrt(np.sqrt(head_dim)))
+        qkv = self.qkv(normed).contiguous()
+        scale = float(1.0 / np.sqrt(np.sqrt(self.head_dim)))
         # Meta tensors carry only shapes (``utils/summary.py`` counts a
         # forward's FLOPs on them): the plain version's products stand in.
         if self.uses_kernel(t) and qkv.device.type != "meta":
             out = attn_ops.packed_attention(qkv, self.heads, scale)
         else:
             out = attn_ops.reference_attention(qkv, self.heads, scale)
-        out = F.linear(out, self.proj_out.weight[:, :, 0].to(dt), self.proj_out.bias.to(dt))
+        out = self.proj_out(out)
         return (tokens + out).transpose(1, 2).reshape(b, c, hh, ww)
 
 

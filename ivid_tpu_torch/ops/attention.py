@@ -19,6 +19,7 @@ are the plain versions of K1's log-sum-exp and of K4 in its formula form.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import math
@@ -30,11 +31,13 @@ _LOG2E = math.log2(math.e)
 
 # Kernel launches since the counters were last reset (chip_smoke.py reads
 # them): K1 forward launches and K4 backward launches, each of either path,
-# and of those the f32 path's (its own kernels).
+# and of those the f32 path's (its own kernels); and K1's launches by the
+# width 3C of the qkv it read (under tensor parallelism, this rank's heads).
 launches = 0
 bwd_launches = 0
 f32_launches = 0
 bwd_f32_launches = 0
+width_launches = collections.Counter()
 
 
 def reference_attention(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
@@ -130,6 +133,7 @@ def _launch(qkv: torch.Tensor, heads: int, scale: float, with_lse: bool = False)
         raise RuntimeError(f"packed_attention kernel launch failed: CUDA error {rc}")
     launches += 1
     f32_launches += qkv.dtype == torch.float32
+    width_launches[c3] += 1
     return out, lse
 
 

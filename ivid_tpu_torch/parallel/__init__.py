@@ -1,39 +1,114 @@
-"""Data parallelism over ``torch.distributed``: one process per GPU.
+"""Data and tensor parallelism over ``torch.distributed``: one process per
+rank.
 
 The counterpart of ``ivid_tpu/parallel/`` for the port. :func:`init_from_env`
 starts the default process group from the environment that
 ``torch.distributed.run`` sets (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
-``MASTER_ADDR``, ``MASTER_PORT``): NCCL on ``cuda:LOCAL_RANK``, or gloo on
-the CPU. :func:`check_replication` holds every parameter to be the same on
-every rank, and :class:`RowShardNoise` gives each rank its rows of draws
-made over the whole world's batch. Without a process group every function
+``MASTER_ADDR``, ``MASTER_PORT``) on the device the caller names: NCCL with
+one rank per card (``cuda``), gloo with every rank on one card (``cuda:K``;
+NCCL refuses two ranks on one device) or on the CPU. :func:`make_groups`
+splits the ranks into the ``(data, model)`` mesh of ``make_mesh``, and
+:mod:`ivid_tpu_torch.parallel.tensor` shards the UNet over the model group.
+:func:`check_replication` holds every parameter to be the same on every rank
+that must hold it, and :class:`RowShardNoise` gives each data rank its rows
+of draws made over the whole batch. Without a process group every function
 here sees one rank.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import zlib
+from typing import Collection, Optional
 
 import torch
 import torch.distributed as dist
 
 
-def init_from_env(device_type: str = "cuda") -> torch.device:
-    """Join the default process group as ``RANK`` of ``WORLD_SIZE``; returns
-    this rank's device (``cuda:LOCAL_RANK``, or the CPU with gloo)."""
+def placement(device="cuda"):
+    """``(backend, device)`` of this rank for the device the caller names
+    (see :func:`init_from_env`), from ``RANK``, ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE``; raises where the host has too few cards."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        local = int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", local + 1))
+        cards = torch.cuda.device_count()
+        if max(local, local_world - 1) >= cards:
+            raise RuntimeError(f"{local_world} local ranks but {cards} CUDA devices: give "
+                               "--device cuda:K to put every rank on card K (gloo)")
+        return "nccl", torch.device("cuda", local)
+    if device.type in ("cuda", "cpu"):
+        return "gloo", device
+    raise ValueError(f"process groups run on 'cuda', 'cuda:K' or 'cpu', not {str(device)!r}")
+
+
+def init_from_env(device="cuda") -> torch.device:
+    """Join the default process group as ``RANK`` of ``WORLD_SIZE`` on the
+    device named; returns this rank's device:
+
+    - ``cuda``: ``cuda:LOCAL_RANK`` with NCCL, one rank per card (raises if
+      this host has more local ranks than cards);
+    - ``cuda:K``: every rank on card K with gloo, which carries CUDA tensors
+      through the host (NCCL refuses two ranks on one device);
+    - ``cpu``: gloo.
+
+    Rank 0 prints the backend and the device."""
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    if device_type == "cuda":
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+    backend, device = placement(device)
+    kwargs = {}
+    if device.type == "cuda":
         torch.cuda.set_device(device)
-        dist.init_process_group("nccl", init_method="env://", rank=rank, world_size=world,
-                                device_id=device)
-    elif device_type == "cpu":
-        device = torch.device("cpu")
-        dist.init_process_group("gloo", init_method="env://", rank=rank, world_size=world)
-    else:
-        raise ValueError(f"data parallelism runs on 'cuda' or 'cpu', not {device_type!r}")
+        if backend == "nccl":
+            kwargs["device_id"] = device
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world, **kwargs)
+    if rank == 0:
+        print(f"process group: {backend}, {world} ranks, rank 0 on {device}", flush=True)
     return device
+
+
+@dataclasses.dataclass(frozen=True)
+class Groups:
+    """This rank's place in the ``(data, model)`` mesh: the process group of
+    its data replicas (the ranks that hold the same shards) and of its model
+    peers (the ranks that hold one model between them), with its index and
+    the size of each. The model group is None without tensor parallelism;
+    both are None without a process group."""
+
+    data: Optional[object]
+    model: Optional[object]
+    data_rank: int = 0
+    data_size: int = 1
+    model_rank: int = 0
+    model_size: int = 1
+
+
+def make_groups(model_parallel: int = 1) -> Groups:
+    """The counterpart of ``make_mesh(model=model_parallel)``: rank
+    ``d·model + m`` sits at ``(d, m)`` of a ``(world/model, model)`` mesh,
+    as ``reshape(data, model)`` places the devices. Every rank creates every
+    group, in the same order (data groups, then model groups), as
+    ``torch.distributed.new_group`` requires."""
+    if model_parallel < 1:
+        raise ValueError(f"model_parallel={model_parallel} must be at least 1")
+    if not dist.is_initialized():
+        if model_parallel != 1:
+            raise ValueError(f"model_parallel={model_parallel} needs a process group of "
+                             f"{model_parallel} ranks or more (--distributed)")
+        return Groups(None, None)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world % model_parallel:
+        raise ValueError(f"{world} ranks do not split into model groups of {model_parallel}")
+    data = world // model_parallel
+    if model_parallel == 1:
+        return Groups(dist.group.WORLD, None, rank, world, 0, 1)
+    data_groups = [dist.new_group([d * model_parallel + m for d in range(data)])
+                   for m in range(model_parallel)]
+    model_groups = [dist.new_group([d * model_parallel + m for m in range(model_parallel)])
+                    for d in range(data)]
+    d, m = divmod(rank, model_parallel)
+    return Groups(data_groups[m], model_groups[d], d, data, m, model_parallel)
 
 
 def rank() -> int:
@@ -68,11 +143,14 @@ def mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
     return total / dist.get_world_size()
 
 
-def check_replication(named_params) -> None:
-    """Raise unless every parameter is bit-equal on every rank: a crc32
-    digest of each parameter's bytes, all-gathered as int64 (a dtype NCCL
-    carries), the first parameter whose digests differ named. Every rank
-    must call it."""
+def check_replication(named_params, sharded: Collection[str] = (), model_size: int = 1) -> None:
+    """Raise unless every parameter is bit-equal on every rank that must
+    hold it: a replicated one on every rank, one named in ``sharded`` (this
+    rank's slice under tensor parallelism) on the ranks of its data group,
+    which hold the same slice (ranks ``r`` with the same ``r % model_size``).
+    A crc32 digest of each parameter's bytes is all-gathered as int64 (a
+    dtype NCCL carries); the first parameter whose digests differ is named.
+    Every rank must call it."""
     names, digests = [], []
     for name, p in named_params:
         names.append(name)
@@ -86,10 +164,17 @@ def check_replication(named_params) -> None:
     gathered = [torch.empty_like(local) for _ in range(dist.get_world_size())]
     dist.all_gather(gathered, local)
     table = torch.stack(gathered).cpu()
-    differs = (table != table[0]).any(dim=0).nonzero()
+    # Each rank's reference row: its data group's first rank for a shard,
+    # rank 0 for a replicated parameter.
+    ranks = torch.arange(len(table))
+    shard_ref = table[ranks % model_size]
+    is_shard = torch.tensor([name in sharded for name in names], dtype=torch.bool)
+    ref = torch.where(is_shard[None, :], shard_ref, table[:1])
+    differs = (table != ref).any(dim=0).nonzero()
     if len(differs):
         i = int(differs[0])
-        raise RuntimeError(f"parameter {names[i]} differs across ranks "
+        kind = "shard" if is_shard[i] else "parameter"
+        raise RuntimeError(f"{kind} {names[i]} differs across ranks "
                            f"(crc32 by rank: {table[:, i].tolist()})")
 
 

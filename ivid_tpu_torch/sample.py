@@ -13,6 +13,22 @@ this port's UNet shares).
 
 Besides the JAX CLI's records it writes every scene's npz for the ``random``
 viewset too. Depth grids use the INFERNO colormap, as the JAX CLI's.
+
+``--data_parallel`` shards every batch over the ranks that
+``torch.distributed.run`` starts (the reference's per-GPU sampling
+processes, which the JAX pipeline's batch-sharded mesh stands for)::
+
+    python -m torch.distributed.run --standalone --nproc_per_node W \
+        -m ivid_tpu_torch.sample ... --data_parallel
+
+Rank r takes rows ``[r·b/W, (r+1)·b/W)`` of every batch of b: its seeds'
+noise, its classes and its views. Its noise source is its rows of the
+whole batch's draws (``parallel.RowShardNoise``), so a scene does not
+depend on W. Each rank writes its own scenes' files, named by their global
+index; a batch that W does not divide is refused. ``--device cuda`` puts
+one rank on each card (NCCL), ``cuda:K`` every rank on card K (gloo),
+``cpu`` runs gloo on the CPU. Rank 0 draws the classes and the ``random``
+viewset's orbit and sends them to the others.
 """
 
 from __future__ import annotations
@@ -50,6 +66,8 @@ def parse_args(argv=None):
                    help="Aggregate only the K angularly-nearest prior views per novel "
                         "view (default: all). Lossy: dropped views change the depth "
                         "and mask conditioning")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard every batch over the ranks of torch.distributed.run")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -98,18 +116,45 @@ def save_records(out, viewset, suffix, samples, conds, meshes, colors):
 
 
 def main(argv=None) -> dict:
-    """Run the CLI; returns ``output_dir``, the per-batch ``samples`` (numpy
-    [b, V, s, s, 4]), the per-stage device milliseconds ``stage_ms`` (CUDA
-    only) and the wall seconds."""
+    """Run the CLI; returns ``output_dir``, this rank's rows of every batch
+    as ``samples`` (numpy [b/W, V, s, s, 4]) and ``conds`` (the pipeline's
+    condition dicts, or None for the ``uncond`` viewset), the per-stage
+    device milliseconds ``stage_ms`` (CUDA only) and the wall seconds. With
+    ``--data_parallel`` it joins the process group of the launcher's
+    environment and leaves it when it returns."""
     opt = parse_args(argv)
+    from ivid_tpu_torch import parallel
+
+    t_start = time.perf_counter()
+    if not opt.data_parallel:
+        return _sample(opt, torch.device(opt.device), t_start)
+    device = parallel.init_from_env(opt.device)
+    try:
+        return _sample(opt, device, t_start)
+    finally:
+        parallel.shutdown()
+
+
+def _broadcast(obj):
+    """Rank 0's ``obj`` on every rank (itself without a process group)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _sample(opt, device, t_start) -> dict:
+    from ivid_tpu_torch import parallel
     from ivid_tpu_torch.config import Config
     from ivid_tpu_torch.diffusion.noise import TorchNoise
     from ivid_tpu_torch.inference.pipeline import ScenePipeline
     from ivid_tpu_torch.inference.viewsets import build_viewset
     from ivid_tpu_torch.utils.images import parse_int_list
 
-    t_start = time.perf_counter()
-    device = torch.device(opt.device)
+    rank, world = parallel.rank(), parallel.world_size()
     cfg_uncond = Config.load(opt.config_uncond)
     cfg_cond = Config.load(opt.config_cond) if opt.viewset != "uncond" else None
 
@@ -138,7 +183,15 @@ def main(argv=None) -> dict:
         else:
             classes = parse_int_list(opt.classes)
 
+    sizes = {min(opt.batchsize, num_samples - start)
+             for start in range(0, num_samples, opt.batchsize)}
+    uneven = sorted(b for b in sizes if b % world)
+    if uneven:
+        raise ValueError(f"batches of {uneven} scenes do not split over {world} ranks: give a "
+                         f"--batchsize and a sample count that {world} divides")
     modelviews = build_viewset(opt.viewset, num_samples)
+    # The ranks share rank 0's random draws (classes and orbits).
+    classes, modelviews = _broadcast((classes, modelviews))
     per_sample_views = isinstance(modelviews[0], list)
 
     fw_uncond = build_model(cfg_uncond, opt.ckpt_uncond, 0, device)
@@ -152,30 +205,32 @@ def main(argv=None) -> dict:
         guidance=opt.guidance, max_agg_views=opt.max_agg_views, device=device,
     )
 
-    all_samples = []
-    done = 0
+    all_samples, all_conds = [], []
     for start in range(0, num_samples, opt.batchsize):
-        bs = min(opt.batchsize, num_samples - start)
-        b_classes = (torch.tensor(classes[start:start + bs], device=device)
+        lb = min(opt.batchsize, num_samples - start) // world
+        rows = range(start + rank * lb, start + (rank + 1) * lb)  # this rank's scenes
+        b_classes = (torch.tensor([classes[i] for i in rows], device=device)
                      if classes is not None else None)
         noise = None
         if seeds is not None:
             noise = torch.cat([
                 torch.randn((1, image_size, image_size, 4),
-                            generator=torch.Generator().manual_seed(seeds[start + j]))
-                for j in range(bs)
+                            generator=torch.Generator().manual_seed(seeds[i]))
+                for i in rows
             ])
-        views = (np.asarray([modelviews[start + j] for j in range(bs)])
+        views = (np.asarray([modelviews[i] for i in rows])
                  if per_sample_views else np.asarray(modelviews))
         rng = TorchNoise.seeded(1234 + start, device)
-        state, samples, conds = pipe.sample_batch(rng, views, batch=bs, classes=b_classes,
+        if world > 1:
+            rng = parallel.RowShardNoise(rng, rank, world)
+        state, samples, conds = pipe.sample_batch(rng, views, batch=lb, classes=b_classes,
                                                   noise=noise)
         samples = samples.cpu().numpy()
         conds = {k: v.cpu().numpy() for k, v in conds.items()} if conds else None
         all_samples.append(samples)
+        all_conds.append(conds)
         n_views = samples.shape[1]
-        for j in range(bs):
-            i = start + j
+        for j, i in enumerate(rows):
             suffix = []
             if classes is not None:
                 suffix.append(f"class{classes[i]:03d}")
@@ -184,11 +239,11 @@ def main(argv=None) -> dict:
             meshes, colors = pipe.state_to_host_scene(state, j, n_views)
             s_conds = {k: v[j] for k, v in conds.items()} if conds is not None else None
             save_records(out, opt.viewset, suffix, samples[j], s_conds, meshes, colors)
-            done += 1
-            print(f"[{done}/{num_samples}] saved {suffix}", flush=True)
+            print(f"[{i + 1}/{num_samples}] saved {suffix}", flush=True)
     return {
         "output_dir": out,
         "samples": all_samples,
+        "conds": all_conds,
         "stage_ms": pipe.stage_ms(),
         "seconds": time.perf_counter() - t_start,
     }

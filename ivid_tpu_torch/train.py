@@ -21,9 +21,15 @@ Data parallel, one process per GPU::
         -m ivid_tpu_torch.train --config CONFIG --data_dir DIR --distributed
 
 ``--distributed`` joins the process group that the launcher's environment
-describes (NCCL on ``cuda:LOCAL_RANK``; gloo with ``--device cpu``) and
-leaves it when training ends. ``--num_workers`` and ``--worker_mode`` set
-the loader's workers (the trainer's defaults: 4 threads).
+describes and leaves it when training ends: with ``--device cuda`` NCCL on
+``cuda:LOCAL_RANK`` (one rank per card), with ``--device cuda:K`` gloo with
+every rank on card K, with ``--device cpu`` gloo. ``--model_parallel M``
+(tensor parallelism, the root ``train.py``'s flag) splits the N ranks into
+an ``(N/M, M)`` mesh: each group of M ranks holds one model between them
+(``parallel/tensor.py``), and the N/M groups are data parallel. The
+checkpoints hold full tensors whatever M is. ``--num_workers`` and
+``--worker_mode`` set the loader's workers (the trainer's defaults: 4
+threads).
 """
 
 from __future__ import annotations
@@ -45,7 +51,9 @@ def parse_args(argv=None):
     p.add_argument("--max_steps", type=int, default=None, help="override the config")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--distributed", action="store_true",
-                   help="data parallel: one process per GPU, from torch.distributed.run")
+                   help="one process per rank, from torch.distributed.run")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor parallelism: ranks per model (needs --distributed)")
     p.add_argument("--num_workers", type=int, default=None, help="loader workers")
     p.add_argument("--worker_mode", choices=["thread", "process"], default=None,
                    help="loader workers as threads or spawned processes")
@@ -62,7 +70,7 @@ def main(argv=None, record=None):
     from ivid_tpu_torch import parallel
 
     if opt.distributed:
-        device = parallel.init_from_env(torch.device(opt.device).type)
+        device = parallel.init_from_env(opt.device)
     else:
         device = torch.device(opt.device)
     try:
@@ -104,8 +112,12 @@ def _train(opt, argv, device, record):
     # The initial weights follow the trainer's seed.
     torch.manual_seed(int(trainer_args.get("seed", 0)))
     model = build_backbone(cfg).to(device)
+    if is_main:
+        # Of the whole model, before a trainer shards it.
+        write_summary(os.path.join(output_dir, "model_summary.txt"), model, dataset)
     framework = build_framework_from_config(cfg, model, device=device)
-    trainer = trainer_cls(framework, dataset, output_dir, device=device, **trainer_args)
+    trainer = trainer_cls(framework, dataset, output_dir, device=device,
+                          model_parallel=opt.model_parallel, **trainer_args)
     trainer.record = record
     try:
         if is_main:
@@ -113,7 +125,6 @@ def _train(opt, argv, device, record):
                 print(" ".join(sys.argv if argv is None else ["ivid_tpu_torch.train", *argv]),
                       file=f)
             cfg.save(os.path.join(output_dir, "config.json"))
-            write_summary(os.path.join(output_dir, "model_summary.txt"), model, dataset)
 
         step = opt.ckpt
         if step == "latest":

@@ -2,8 +2,8 @@
 checkpointing, logging and sample grids.
 
 Port of ``ivid_tpu/training/trainer.py`` (``BasicTrainer``,
-``InpaintTrainer``, ``SuperResTrainer``), on one device or data parallel
-over ``torch.distributed`` (one process per GPU):
+``InpaintTrainer``, ``SuperResTrainer``), on one device or over the
+``(data, model)`` mesh of ``torch.distributed`` ranks (one process each):
 
 - Parameters stay in f32; a bf16 torso casts them per call (``models/adm.py``).
 - AdamW with optax's defaults (betas 0.9/0.999, eps 1e-8) and the config's
@@ -22,17 +22,28 @@ over ``torch.distributed`` (one process per GPU):
   every step (``training/warp_cond.py``), the warp batched over the batch,
   or, with ``warp_host``, takes it from loader workers that warp on the CPU
   (``data/warp_host.py``).
-- Data parallel (a process group is up): the batch is global,
-  ``batch_size_per_gpu × world``; each rank loads its own rows (the loader's
-  shards) and the model runs through ``DistributedDataParallel``, which
-  averages the gradients (the first ``batch_split − 1`` micro-batches under
+- Parallel (a process group is up): the ranks form a ``(data, model)``
+  mesh of ``world/model_parallel × model_parallel``
+  (``parallel.make_groups``). With ``model_parallel > 1`` each model group
+  holds one model between its ranks (``parallel.tensor.shard_unet``: the
+  full model, built the same on every rank, replaced by this rank's
+  slices), and AdamW and the EMAs work on the slices. The batch is global,
+  ``batch_size_per_gpu × data size``; each data rank loads its own rows
+  (the loader's shards), which its model peers share, and the model runs
+  through ``DistributedDataParallel`` over the data group, which averages
+  the gradients (the first ``batch_split − 1`` micro-batches under
   ``no_sync``). Every rank derives the step's noise as one device would for
-  the global batch and keeps its own rows (``parallel.RowShardNoise``, and
-  the warp's per-sample sources split over the global batch), so a run on
-  N ranks takes the steps of one rank at the same global batch. Parameters
-  are checked bit-equal across ranks at set-up, after every load and every
-  ``i_ddpcheck`` steps. Only rank 0 writes logs, checkpoints and sample
-  grids (sampling with the unwrapped model); the others wait at a barrier.
+  the global batch and keeps its data rank's rows
+  (``parallel.RowShardNoise``, and the warp's per-sample sources split over
+  the global batch), so a run on N ranks takes the steps of one rank at the
+  same global batch. Parameters are checked across ranks at set-up, after
+  every load and every ``i_ddpcheck`` steps (a replicated one bit-equal on
+  every rank, a slice on its data group). Checkpoints hold full tensors,
+  gathered over the model group, so their files do not depend on
+  ``model_parallel``; a load reads them whole and keeps this rank's slices.
+  Saving and sampling are collective: every rank runs them in lockstep
+  (sampling with the unwrapped model), as the JAX trainer does, and only
+  rank 0 writes logs, checkpoints and sample grids.
 - The inpaint and super-resolution trainers can start from a checkpoint of a
   model with fewer input channels (``finetune_ckpt``): its first convolution
   is zero-padded (``checkpoint.finetune_load``), and the EMA copies start
@@ -55,6 +66,7 @@ from ivid_tpu_torch.data.loader import DataLoader
 from ivid_tpu_torch.data.warp_host import HostWarpDataset
 from ivid_tpu_torch.diffusion import samplers
 from ivid_tpu_torch.diffusion.noise import KeyedNoise
+from ivid_tpu_torch.parallel import tensor as tp
 from ivid_tpu_torch.training import checkpoint as ckpt_io
 from ivid_tpu_torch.training import warp_cond
 from ivid_tpu_torch.utils.images import save_image_grid
@@ -118,15 +130,14 @@ class BasicTrainer:
         fp16_scale_growth: float = 1e-3,
     ):
         """``batch_size`` is the global batch; ``batch_size_per_gpu``, where
-        given, makes it ``batch_size_per_gpu × world``. ``num_workers`` and
-        ``worker_mode`` ("thread" or "process") set the loader's workers.
-        ``noise`` is the noise source (default: a :class:`KeyedNoise` seeded
-        with ``seed + 1``; data parallel runs need one whose ``split`` gives
-        distinct sources)."""
+        given, makes it ``batch_size_per_gpu × data size`` (the world over
+        ``model_parallel``). ``model_parallel`` ranks hold one model between
+        them (tensor parallelism; it must divide the process group's size).
+        ``num_workers`` and ``worker_mode`` ("thread" or "process") set the
+        loader's workers. ``noise`` is the noise source
+        (default: a :class:`KeyedNoise` seeded with ``seed + 1``; data
+        parallel runs need one whose ``split`` gives distinct sources)."""
         del fp16_mode, fp16_scale_growth
-        if model_parallel != 1:
-            raise NotImplementedError(f"model_parallel={model_parallel}: tensor parallelism is "
-                                      "not ported; the port is data parallel only")
         if batch_size is None and batch_size_per_gpu is None:
             raise ValueError("give batch_size or batch_size_per_gpu")
         self.framework = framework
@@ -136,11 +147,14 @@ class BasicTrainer:
         self.max_steps = max_steps
         self.rank, self.world = parallel.rank(), parallel.world_size()
         self.is_main = self.rank == 0
-        self.batch_size = (batch_size_per_gpu * self.world if batch_size_per_gpu is not None
+        self.groups = parallel.make_groups(model_parallel)
+        self.data_rank, self.data_size = self.groups.data_rank, self.groups.data_size
+        self.batch_size = (batch_size_per_gpu * self.data_size if batch_size_per_gpu is not None
                            else batch_size)
-        if self.batch_size % self.world:
-            raise ValueError(f"global batch {self.batch_size} not divisible by {self.world} ranks")
-        self.local_batch_size = self.batch_size // self.world
+        if self.batch_size % self.data_size:
+            raise ValueError(f"global batch {self.batch_size} not divisible by {self.data_size} "
+                             "data ranks")
+        self.local_batch_size = self.batch_size // self.data_size
         self.batch_split = batch_split or 1
         if self.local_batch_size % self.batch_split:
             raise ValueError(f"batch {self.local_batch_size} per rank not divisible by split "
@@ -164,12 +178,16 @@ class BasicTrainer:
 
         self.step = 0
         self.model.to(self.device).train()
-        #: the model behind DistributedDataParallel when a process group is
-        #: up (also at world size 1), else None.
+        #: this rank's sharded parameters by name (``parallel.tensor.Shard``);
+        #: empty without tensor parallelism.
+        self.tp_specs = tp.shard_unet(self.model, self.groups)
+        #: the model behind DistributedDataParallel over the data group when a
+        #: process group is up (also at world size 1), else None.
         self.ddp = None
         if torch.distributed.is_initialized():
             self.ddp = torch.nn.parallel.DistributedDataParallel(
-                self.model, device_ids=[self.device] if self.device.type == "cuda" else None)
+                self.model, device_ids=[self.device] if self.device.type == "cuda" else None,
+                process_group=self.groups.data)
         self.params = dict(self.model.named_parameters())
         self.optimizer = torch.optim.AdamW(
             self.params.values(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
@@ -184,7 +202,7 @@ class BasicTrainer:
         self.record: Optional[StepRecord] = None
         self.loader = None
         self._build_loader()
-        parallel.check_replication(self.model.named_parameters())
+        self.check_replication()
         if self.is_main:
             self._print_banner()
 
@@ -199,9 +217,15 @@ class BasicTrainer:
             self.loader.close()
         self._loader_obj = DataLoader(
             self._loader_dataset(), self.batch_size, num_workers=self.num_workers,
-            worker_mode=self.worker_mode, seed=self.seed, shard_index=self.rank,
-            num_shards=self.world, start=tuple(int(x) for x in start))
+            worker_mode=self.worker_mode, seed=self.seed, shard_index=self.data_rank,
+            num_shards=self.data_size, start=tuple(int(x) for x in start))
         self.loader = iter(self._loader_obj)
+
+    def check_replication(self):
+        """``parallel.check_replication`` of the model's parameters, its
+        slices held within their data groups. Collective."""
+        parallel.check_replication(self.model.named_parameters(), self.tp_specs,
+                                   self.groups.model_size)
 
     def close(self):
         """Stop the loader's workers; a later step starts them again at the
@@ -232,8 +256,8 @@ class BasicTrainer:
         rng_prep, rng_loss = rng.split()
         batch = self.prepare_batch(batch, rng_prep)
         mark(1)
-        if self.world > 1:
-            rng_loss = parallel.RowShardNoise(rng_loss, self.rank, self.world)
+        if self.data_size > 1:
+            rng_loss = parallel.RowShardNoise(rng_loss, self.data_rank, self.data_size)
         self.optimizer.zero_grad(set_to_none=True)
         if self.batch_split > 1:
             # Forward and backward interleave: "loss done" is the last
@@ -309,39 +333,66 @@ class BasicTrainer:
 
     # ---- checkpoints ----
 
+    def _full(self, state: dict) -> dict:
+        """``state`` (tensors by parameter name) with this rank's slices
+        gathered into full tensors. Collective over the model group."""
+        return tp.gather_state_dict(state, self.tp_specs, self.groups) if self.tp_specs else state
+
+    def _slices(self, state: dict) -> dict:
+        """``state`` of full tensors cut to this rank's slices."""
+        return tp.shard_state_dict(state, self.tp_specs, self.groups) if self.tp_specs else state
+
+    def _map_moments(self, opt_state: dict, fn) -> dict:
+        """``opt_state`` (AdamW's state dict) with ``fn`` applied to its
+        ``exp_avg`` and ``exp_avg_sq`` (each a dict by parameter name)."""
+        names = list(self.params)
+        out = dict(opt_state, state=dict(opt_state["state"]))
+        for key in ("exp_avg", "exp_avg_sq"):
+            moments = fn({names[i]: st[key] for i, st in opt_state["state"].items()})
+            for i in opt_state["state"]:
+                out["state"][i] = dict(out["state"][i], **{key: moments[names[i]]})
+        return out
+
     def save(self):
-        """EMAs and misc first, the model last (see ``checkpoint.py``)."""
-        for rate, ema in zip(self.ema_rate, self.ema_params):
-            ckpt_io.save(ckpt_io.ema_path(self.output_dir, rate, self.step),
-                         {k: v.cpu() for k, v in ema.items()})
+        """Collective: every rank gathers its slices (over the model group);
+        rank 0 writes full tensors, the files a ``model_parallel=1`` run
+        writes. EMAs and misc first, the model last (see ``checkpoint.py``)."""
+        emas = [{k: v.cpu() for k, v in self._full(ema).items()} for ema in self.ema_params]
+        optimizer = self._map_moments(self.optimizer.state_dict(), self._full)
+        model = self._full(self.model.state_dict())
+        if not self.is_main:
+            return
+        for rate, ema in zip(self.ema_rate, emas):
+            ckpt_io.save(ckpt_io.ema_path(self.output_dir, rate, self.step), ema)
         misc = {
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": optimizer,
             "step": self.step,
             "rng": self.rng.state_dict(),
             "loader_pos": list(self._loader_obj.position),
             "ema_rates": list(self.ema_rate),
         }
         ckpt_io.save(ckpt_io.misc_path(self.output_dir, self.step), misc)
-        ckpt_io.save(ckpt_io.model_path(self.output_dir, self.step), self.model.state_dict())
+        ckpt_io.save(ckpt_io.model_path(self.output_dir, self.step), model)
 
     def load(self, load_dir: str, step: int):
-        """Resume from the checkpoint of ``step`` (every rank reads it): the
-        port's ``.pt`` files, or a JAX package run's ``.msgpack`` files
-        (:meth:`_load_jax`)."""
+        """Resume from the checkpoint of ``step`` (every rank reads the full
+        tensors and keeps its slices): the port's ``.pt`` files, or a JAX
+        package run's ``.msgpack`` files (:meth:`_load_jax`)."""
         if ckpt_io.step_suffix(load_dir, step) == ckpt_io.MSGPACK:
             self._load_jax(load_dir, step)
         else:
-            self.model.load_state_dict(ckpt_io.load(ckpt_io.model_path(load_dir, step)))
+            self.model.load_state_dict(self._slices(
+                ckpt_io.load(ckpt_io.model_path(load_dir, step))))
             misc = ckpt_io.load(ckpt_io.misc_path(load_dir, step))
             self._check_ema_rates(misc["ema_rates"])
             for i, rate in enumerate(self.ema_rate):
-                ema = ckpt_io.load(ckpt_io.ema_path(load_dir, rate, step))
+                ema = self._slices(ckpt_io.load(ckpt_io.ema_path(load_dir, rate, step)))
                 self.ema_params[i] = {k: v.to(self.device) for k, v in ema.items()}
-            self.optimizer.load_state_dict(misc["optimizer"])
+            self.optimizer.load_state_dict(self._map_moments(misc["optimizer"], self._slices))
             self.step = int(misc["step"])
             self.rng.load_state_dict(misc["rng"])
             self._build_loader(start=misc["loader_pos"])
-        parallel.check_replication(self.model.named_parameters())
+        self.check_replication()
 
     def _check_ema_rates(self, rates):
         if [float(r) for r in rates] != [float(r) for r in self.ema_rate]:
@@ -356,20 +407,21 @@ class BasicTrainer:
         the resumed run's draws are the port's own, the same on every
         resume of that file, not the JAX run's."""
         arch = self.model.arch_args
-        self.model.load_state_dict(ckpt_io.load_model_state(
-            ckpt_io.model_path(load_dir, step, ckpt_io.MSGPACK), arch))
+        self.model.load_state_dict(self._slices(ckpt_io.load_model_state(
+            ckpt_io.model_path(load_dir, step, ckpt_io.MSGPACK), arch)))
         misc = ckpt_io.read_jax_misc(ckpt_io.misc_path(load_dir, step, ckpt_io.MSGPACK), arch)
         self._check_ema_rates(misc["ema_rates"])
         for i, rate in enumerate(self.ema_rate):
-            ema = ckpt_io.load_model_state(
-                ckpt_io.ema_path(load_dir, rate, step, ckpt_io.MSGPACK), arch)
+            ema = self._slices(ckpt_io.load_model_state(
+                ckpt_io.ema_path(load_dir, rate, step, ckpt_io.MSGPACK), arch))
             self.ema_params[i] = {k: ema[k].to(self.device) for k in self.params}
+        exp_avg, exp_avg_sq = self._slices(misc["exp_avg"]), self._slices(misc["exp_avg_sq"])
         self.optimizer.state.clear()
         for k, p in self.params.items():
             self.optimizer.state[p] = {
                 "step": torch.tensor(float(misc["adam_step"]), dtype=torch.float32),
-                "exp_avg": misc["exp_avg"][k].to(p.device),
-                "exp_avg_sq": misc["exp_avg_sq"][k].to(p.device),
+                "exp_avg": exp_avg[k].to(p.device),
+                "exp_avg_sq": exp_avg_sq[k].to(p.device),
             }
         self.step = misc["step"]
         self.rng = KeyedNoise.from_jax_key(misc["rng"], self.device)
@@ -403,6 +455,8 @@ class BasicTrainer:
                                        guidance=guidance,
                                        steps=min(250, self.framework.schedule.timesteps))
             outs.append(out["samples"].cpu().numpy())
+        if not self.is_main:
+            return
         imgs = np.concatenate(outs, axis=0)
         nrow = int(np.sqrt(num_samples))
         d = os.path.join(self.output_dir, "samples")
@@ -412,15 +466,16 @@ class BasicTrainer:
 
     # ---- the loop ----
 
-    def _on_main(self, fn):
-        """``fn()`` on rank 0; the other ranks wait for it at a barrier."""
-        if self.is_main:
-            fn()
+    def _collective(self, fn):
+        """``fn()`` on every rank in lockstep (the model peers' collectives
+        need each other; only rank 0 writes), then a barrier, so that no
+        rank reads a file before it is written."""
+        fn()
         parallel.barrier()
 
     def run(self):
         if self.step == 0 and self.sample_at_init:
-            self._on_main(lambda: self.sample(suffix="init"))
+            self._collective(lambda: self.sample(suffix="init"))
         log = []
         elapsed = 0.0
         log_file = open(os.path.join(self.output_dir, "log.txt"), "a") if self.is_main else None
@@ -437,7 +492,7 @@ class BasicTrainer:
                 dt = time.time() - t0
                 elapsed += dt
                 if self.i_ddpcheck and self.step % self.i_ddpcheck == 0:
-                    parallel.check_replication(self.model.named_parameters())
+                    self.check_replication()
                 if self.is_main:
                     log.append((self.step, {
                         "time": {"step": dt, "elapsed": elapsed},
@@ -452,9 +507,9 @@ class BasicTrainer:
                         log_file.flush()
                         log = []
                 if self.step % self.i_save == 0:
-                    self._on_main(self.save)
+                    self._collective(self.save)
                 if self.step % self.i_sample == 0:
-                    self._on_main(self.sample)
+                    self._collective(self.sample)
         finally:
             if log_file is not None:
                 log_file.close()
@@ -465,6 +520,7 @@ class BasicTrainer:
         print(f"  - Framework: {self.framework.__class__.__name__}")
         print(f"  - Dataset: {self.dataset.__class__.__name__}")
         print(f"  - Device: {self.device}, ranks: {self.world}")
+        print(f"  - Mesh: {{data: {self.data_size}, model: {self.groups.model_size}}}")
         print(f"  - Batch size: {self.batch_size} ({self.local_batch_size} per rank)")
         print(f"  - Batch split: {self.batch_split}")
         print(f"  - LR / WD: {self.learning_rate} / {self.weight_decay}")
@@ -478,14 +534,14 @@ class FinetuneMixin:
     def finetune_from(self, finetune_ckpt: str):
         """``finetune_ckpt``: a model or EMA file, the port's ``.pt``, a
         reference state dict or the JAX package's ``.msgpack``."""
-        state = ckpt_io.finetune_load(finetune_ckpt, self.model.state_dict(),
+        state = ckpt_io.finetune_load(finetune_ckpt, self._full(self.model.state_dict()),
                                       self.model.arch_args)
-        self.model.load_state_dict(state)
+        self.model.load_state_dict(self._slices(state))
         with torch.no_grad():
             for ema in self.ema_params:
                 for k, v in ema.items():
                     v.copy_(self.params[k])
-        parallel.check_replication(self.model.named_parameters())
+        self.check_replication()
         if self.is_main:
             print(f"Finetuning from {finetune_ckpt}")
 
@@ -517,13 +573,14 @@ class InpaintTrainer(FinetuneMixin, BasicTrainer):
                                near=self.near, far=self.far, seed=self.seed)
 
     def prepare_batch(self, batch, rng):
-        """The warp conditioning of this rank's rows: one source per row of
-        the global batch (``rng.split(global batch)``), this rank's block
-        kept. With ``warp_host`` the loader attached it already."""
+        """The warp conditioning of this data rank's rows: one source per row
+        of the global batch (``rng.split(global batch)``), this data rank's
+        block kept. With ``warp_host`` the loader attached it already."""
         if self.warp_host:
             return batch
         b = batch["x_0"].shape[0]
-        rows = rng.split(b * self.world)[self.rank * b:(self.rank + 1) * b]
+        d = self.data_rank
+        rows = rng.split(b * self.data_size)[d * b:(d + 1) * b]
         return self._synthesize(batch, rows)
 
     def synthesize_cond(self, batch, rng):
@@ -555,6 +612,8 @@ class InpaintTrainer(FinetuneMixin, BasicTrainer):
             cond=cond, guidance=3.0 if self.model.num_classes else 0.0,
             steps=min(250, self.framework.schedule.timesteps),
         )
+        if not self.is_main:
+            return
         host = lambda x: x.detach().cpu().numpy()
         imgs, y = host(out["samples"]), host(cond["y"])
         nrow = int(np.sqrt(num_samples))
@@ -600,6 +659,8 @@ class SuperResTrainer(FinetuneMixin, BasicTrainer):
             cond=cond, guidance=3.0 if self.model.num_classes else 0.0,
             steps=min(50, self.framework.schedule.timesteps),
         )
+        if not self.is_main:
+            return
         imgs = out["samples"].cpu().numpy()
         nrow = int(np.sqrt(num_samples))
         d = os.path.join(self.output_dir, "samples")

@@ -211,7 +211,8 @@ def test_port_imports_no_jax():
         "assert 'ivid_tpu_torch.eval' in sys.modules\n"
         "assert 'ivid_tpu_torch.evals.inception' in sys.modules\n"
         "for m in ('data.native', 'data.imagenet', 'data.single_category', 'data.warp_host',\n"
-        "          'parallel', 'training.flax_msgpack', 'utils.summary', 'utils.profiling'):\n"
+        "          'parallel', 'parallel.tensor', 'graft_entry', 'training.flax_msgpack',\n"
+        "          'utils.summary', 'utils.profiling'):\n"
         "    assert 'ivid_tpu_torch.' + m in sys.modules, m\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
