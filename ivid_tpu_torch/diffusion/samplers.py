@@ -5,6 +5,7 @@ Port of ``ivid_tpu/diffusion/samplers.py`` as plain Python loops over the
 timesteps (PyTorch runs eagerly, so the JAX package's scan chunking has no
 counterpart). The per-step noise derivation follows the JAX samplers:
 ``fold_in(rng, step)`` then ``split`` into the model's and the step's noise.
+Under torch.profiler each step is a ``sampler.step`` span.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from ivid_tpu_torch.diffusion import schedules as sched
+from ivid_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,15 +88,16 @@ def ddpm_sample(framework, rng, *, num=None, image_size=None, noise=None, cond=N
     nd = x.dim()
     traj = [] if return_trajectory else None
     for i in range(T - 1, -1, -1):
-        t = torch.full((x.shape[0],), i, dtype=torch.long, device=x.device)
-        rng_model, rng_noise = rng.fold_in(i).split()
-        eps = framework.model_inference(rng_model, x, t, cond, guidance)
-        pred_x_0 = sched.predict_xstart_from_eps(s, x, t, eps)
-        mean, _, log_var = sched.q_posterior_mean_variance(s, pred_x_0, x, t)
-        z = rng_noise.normal(x.shape)
-        x = mean + _nonzero_mask(t, nd) * torch.exp(0.5 * log_var) * z
-        if traj is not None:
-            traj.append((x, pred_x_0))
+        with span("sampler.step"):
+            t = torch.full((x.shape[0],), i, dtype=torch.long, device=x.device)
+            rng_model, rng_noise = rng.fold_in(i).split()
+            eps = framework.model_inference(rng_model, x, t, cond, guidance)
+            pred_x_0 = sched.predict_xstart_from_eps(s, x, t, eps)
+            mean, _, log_var = sched.q_posterior_mean_variance(s, pred_x_0, x, t)
+            z = rng_noise.normal(x.shape)
+            x = mean + _nonzero_mask(t, nd) * torch.exp(0.5 * log_var) * z
+            if traj is not None:
+                traj.append((x, pred_x_0))
     return _result(x, traj)
 
 
@@ -116,23 +119,24 @@ def ddim_sample(framework, rng, *, num=None, image_size=None, noise=None, cond=N
     nd = x.dim()
     traj = [] if return_trajectory else None
     for i in range(steps - 1, -1, -1):
-        t = torch.full((x.shape[0],), jump * (i + 1), dtype=torch.long, device=x.device)
-        t_prev = torch.full_like(t, jump * i)
-        nz = _nonzero_mask(t_prev, nd)
-        rng_model, rng_noise = rng.fold_in(i).split()
-        eps = framework.model_inference(rng_model, x, t - 1, cond, guidance)
-        pred_x_0 = sched.predict_xstart_from_eps(s, x, t - 1, eps)
-        pred_x_0 = apply_pred_x0_edits(pred_x_0, edits, nz)
-        eps = sched.predict_eps_from_xstart(s, x, t - 1, pred_x_0)
+        with span("sampler.step"):
+            t = torch.full((x.shape[0],), jump * (i + 1), dtype=torch.long, device=x.device)
+            t_prev = torch.full_like(t, jump * i)
+            nz = _nonzero_mask(t_prev, nd)
+            rng_model, rng_noise = rng.fold_in(i).split()
+            eps = framework.model_inference(rng_model, x, t - 1, cond, guidance)
+            pred_x_0 = sched.predict_xstart_from_eps(s, x, t - 1, eps)
+            pred_x_0 = apply_pred_x0_edits(pred_x_0, edits, nz)
+            eps = sched.predict_eps_from_xstart(s, x, t - 1, pred_x_0)
 
-        alpha_bar = sched.extract(s.alphas_cumprod, t - 1, nd)
-        alpha_bar_prev = sched.extract(s.alphas_cumprod_prev, t_prev, nd)
-        sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
-                 * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
-        mean = (torch.sqrt(alpha_bar_prev) * pred_x_0
-                + torch.sqrt(1 - alpha_bar_prev - sigma ** 2) * eps)
-        z = rng_noise.normal(x.shape)
-        x = mean + nz * sigma * z
-        if traj is not None:
-            traj.append((x, pred_x_0))
+            alpha_bar = sched.extract(s.alphas_cumprod, t - 1, nd)
+            alpha_bar_prev = sched.extract(s.alphas_cumprod_prev, t_prev, nd)
+            sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+                     * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
+            mean = (torch.sqrt(alpha_bar_prev) * pred_x_0
+                    + torch.sqrt(1 - alpha_bar_prev - sigma ** 2) * eps)
+            z = rng_noise.normal(x.shape)
+            x = mean + nz * sigma * z
+            if traj is not None:
+                traj.append((x, pred_x_0))
     return _result(x, traj)

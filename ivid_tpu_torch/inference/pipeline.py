@@ -14,7 +14,9 @@ batch of scenes:
 Every random draw goes through the noise source passed in (see
 :mod:`ivid_tpu_torch.diffusion.noise`), split in the JAX pipeline's order.
 On a CUDA device the pipeline records per-stage device time with CUDA events
-(:meth:`ScenePipeline.stage_ms`).
+(:meth:`ScenePipeline.stage_ms`). Under torch.profiler each batch, novel
+view and stage is a span (``pipeline.sample_batch``, ``pipeline.view``,
+``pipeline.<stage>``; :func:`ivid_tpu_torch.utils.profiling.span`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ivid_tpu_torch.diffusion import samplers
 from ivid_tpu_torch.diffusion.samplers import PredX0Edits
 from ivid_tpu_torch.ops import geometry as geom
 from ivid_tpu_torch.ops import warp as warp_ops
+from ivid_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -57,23 +60,26 @@ def select_nearest_views(mvs: np.ndarray, j: int, k: int) -> np.ndarray:
 
 
 class StageClock:
-    """Sums device time per named stage with CUDA events (CUDA only)."""
+    """Sums device time per named stage with CUDA events (CUDA only), and
+    marks each stage as the span ``{owner}.{name}`` (on any device)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, owner: str):
         self.enabled = device.type == "cuda"
+        self.owner = owner
         self.pairs: dict = {}
 
     @contextlib.contextmanager
     def __call__(self, name: str):
-        if not self.enabled:
+        with span(f"{self.owner}.{name}"):
+            if not self.enabled:
+                yield
+                return
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             yield
-            return
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        end.record()
-        self.pairs.setdefault(name, []).append((start, end))
+            end.record()
+            self.pairs.setdefault(name, []).append((start, end))
 
     def totals(self) -> dict:
         if not self.enabled:
@@ -106,7 +112,7 @@ class ScenePipeline:
         # Like every other entry point of the port, the card unless the caller
         # names a device.
         self.device = torch.device(device) if device is not None else torch.device("cuda")
-        self._clock = StageClock(self.device)
+        self._clock = StageClock(self.device, "pipeline")
 
     def stage_ms(self) -> dict:
         """Device milliseconds per stage (uncond, mesh, aggregation, cond)
@@ -166,55 +172,57 @@ class ScenePipeline:
         source; ``modelviews`` [V,4,4] (shared) or [B,V,4,4] (per sample).
         Returns (state, samples [B, V, s, s, 4] in [-1, 1], conds dict with
         ``color``/``depth`` [B, V-1, s, s, ·] in [-1, 1], or None)."""
-        s = self.image_size
-        dev = self.device
-        mvs_host = np.asarray(modelviews, np.float32)
-        if mvs_host.ndim == 3:
-            mvs_host = np.broadcast_to(mvs_host[None], (batch,) + mvs_host.shape)
-        mvs = torch.from_numpy(np.array(mvs_host)).to(dev)
-        n_views = mvs.shape[1]
+        with span("pipeline.sample_batch"):
+            s = self.image_size
+            dev = self.device
+            mvs_host = np.asarray(modelviews, np.float32)
+            if mvs_host.ndim == 3:
+                mvs_host = np.broadcast_to(mvs_host[None], (batch,) + mvs_host.shape)
+            mvs = torch.from_numpy(np.array(mvs_host)).to(dev)
+            n_views = mvs.shape[1]
 
-        rng, r0 = rng.split()
-        if noise is None:
-            rng, rn = rng.split()
-            noise = rn.normal((batch, s, s, 4))
-        noise = noise.to(dev)
-        with self._clock("uncond"):
-            x0 = self._run_uncond(r0, noise, classes)
-        samples = [x0]
-        conds = {"color": [], "depth": []}
-        state = SceneState(meshes=[], colors=[])
-        self._add_view(state, x0 * 0.5 + 0.5, mvs[:, 0])
+            rng, r0 = rng.split()
+            if noise is None:
+                rng, rn = rng.split()
+                noise = rn.normal((batch, s, s, 4))
+            noise = noise.to(dev)
+            with self._clock("uncond"):
+                x0 = self._run_uncond(r0, noise, classes)
+            samples = [x0]
+            conds = {"color": [], "depth": []}
+            state = SceneState(meshes=[], colors=[])
+            self._add_view(state, x0 * 0.5 + 0.5, mvs[:, 0])
 
-        cap = self.max_agg_views
-        for j in range(1, n_views):
-            rng, rj = rng.split()
-            if cap is not None and j > cap:
-                idx = torch.from_numpy(select_nearest_views(mvs_host, j, cap)).to(dev)
-                bi = torch.arange(batch, device=dev)[:, None]
-                stacked = geom.stack_meshes(state.meshes, dim=1)
-                meshes_j = stacked.map(lambda x: x[bi, idx])
-                colors_j = torch.stack(state.colors, dim=1)[bi, idx]
-            else:
-                meshes_j = geom.stack_meshes(state.meshes, dim=1)
-                colors_j = torch.stack(state.colors, dim=1)
-            with self._clock("aggregation"):
-                agg = warp_ops.aggregate_conditions_batch(
-                    meshes_j, colors_j, mvs[:, j], fov=self.fov, near=self.near,
-                    far=self.far, atol=self.atol, rtol=self.rtol,
-                    erode_rgb=self.erode_rgb, ssaa=self.ssaa,
-                )
-            with self._clock("cond"):
-                xj = self._guided_ddim(rj, agg, classes)
-            samples.append(xj)
-            conds["color"].append(agg["color"] * 2 - 1)
-            conds["depth"].append(agg["depth"] * 2 - 1)
-            self._add_view(state, xj * 0.5 + 0.5, mvs[:, j])
+            cap = self.max_agg_views
+            for j in range(1, n_views):
+                with span("pipeline.view"):
+                    rng, rj = rng.split()
+                    if cap is not None and j > cap:
+                        idx = torch.from_numpy(select_nearest_views(mvs_host, j, cap)).to(dev)
+                        bi = torch.arange(batch, device=dev)[:, None]
+                        stacked = geom.stack_meshes(state.meshes, dim=1)
+                        meshes_j = stacked.map(lambda x: x[bi, idx])
+                        colors_j = torch.stack(state.colors, dim=1)[bi, idx]
+                    else:
+                        meshes_j = geom.stack_meshes(state.meshes, dim=1)
+                        colors_j = torch.stack(state.colors, dim=1)
+                    with self._clock("aggregation"):
+                        agg = warp_ops.aggregate_conditions_batch(
+                            meshes_j, colors_j, mvs[:, j], fov=self.fov, near=self.near,
+                            far=self.far, atol=self.atol, rtol=self.rtol,
+                            erode_rgb=self.erode_rgb, ssaa=self.ssaa,
+                        )
+                    with self._clock("cond"):
+                        xj = self._guided_ddim(rj, agg, classes)
+                    samples.append(xj)
+                    conds["color"].append(agg["color"] * 2 - 1)
+                    conds["depth"].append(agg["depth"] * 2 - 1)
+                    self._add_view(state, xj * 0.5 + 0.5, mvs[:, j])
 
-        samples = torch.stack(samples, dim=1)
-        conds_out = ({k: torch.stack(v, dim=1) for k, v in conds.items()}
-                     if conds["color"] else None)
-        return state, samples, conds_out
+            samples = torch.stack(samples, dim=1)
+            conds_out = ({k: torch.stack(v, dim=1) for k, v in conds.items()}
+                         if conds["color"] else None)
+            return state, samples, conds_out
 
     @staticmethod
     def state_to_host_scene(state: SceneState, sample_idx: int, n_views: int):

@@ -41,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ivid_tpu_torch.ops import attention as attn_ops
+from ivid_tpu_torch.utils.profiling import span
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_freq: float = 10000.0) -> torch.Tensor:
@@ -126,24 +127,25 @@ class ResBlock(nn.Module):
         )
 
     def forward(self, x, emb, deterministic: bool = True):
-        h = self.in_layers[1](self.in_layers[0](x))
-        if self.up:
-            h, x = _up(h), _up(x)
-        elif self.down:
-            h, x = _down(h), _down(x)
-        h = self.in_layers[2](h)
-        emb_out = self.emb_layers(emb).to(h.dtype)[..., None, None]
-        norm, act, drop, conv = self.out_layers
-        if self.use_scale_shift_norm:
-            scale, shift = emb_out.chunk(2, dim=1)
-            h = act(norm(h) * (1 + scale) + shift)
-        else:
-            h = act(norm(h + emb_out))
-        if not deterministic and drop.p > 0:
-            # torch's global generator draws the mask (the JAX package's
-            # ``dropout`` rng stream has no counterpart here).
-            h = F.dropout(h, drop.p, training=True)
-        return self.skip_connection(x) + conv(h)
+        with span("unet.resblock"):
+            h = self.in_layers[1](self.in_layers[0](x))
+            if self.up:
+                h, x = _up(h), _up(x)
+            elif self.down:
+                h, x = _down(h), _down(x)
+            h = self.in_layers[2](h)
+            emb_out = self.emb_layers(emb).to(h.dtype)[..., None, None]
+            norm, act, drop, conv = self.out_layers
+            if self.use_scale_shift_norm:
+                scale, shift = emb_out.chunk(2, dim=1)
+                h = act(norm(h) * (1 + scale) + shift)
+            else:
+                h = act(norm(h + emb_out))
+            if not deterministic and drop.p > 0:
+                # torch's global generator draws the mask (the JAX package's
+                # ``dropout`` rng stream has no counterpart here).
+                h = F.dropout(h, drop.p, training=True)
+            return self.skip_connection(x) + conv(h)
 
 
 class TokenConv1d(nn.Conv1d):
@@ -184,20 +186,21 @@ class AttentionBlock(nn.Module):
         return tokens >= 512 and self.head_dim == attn_ops.HEAD_DIM
 
     def forward(self, x):
-        b, c, hh, ww = x.shape
-        t = hh * ww
-        tokens = x.reshape(b, c, t).transpose(1, 2)
-        normed = self.norm(x).reshape(b, c, t).transpose(1, 2)
-        qkv = self.qkv(normed).contiguous()
-        scale = float(1.0 / np.sqrt(np.sqrt(self.head_dim)))
-        # Meta tensors carry only shapes (``utils/summary.py`` counts a
-        # forward's FLOPs on them): the plain version's products stand in.
-        if self.uses_kernel(t) and qkv.device.type != "meta":
-            out = attn_ops.packed_attention(qkv, self.heads, scale)
-        else:
-            out = attn_ops.reference_attention(qkv, self.heads, scale)
-        out = self.proj_out(out)
-        return (tokens + out).transpose(1, 2).reshape(b, c, hh, ww)
+        with span("unet.attnblock"):
+            b, c, hh, ww = x.shape
+            t = hh * ww
+            tokens = x.reshape(b, c, t).transpose(1, 2)
+            normed = self.norm(x).reshape(b, c, t).transpose(1, 2)
+            qkv = self.qkv(normed).contiguous()
+            scale = float(1.0 / np.sqrt(np.sqrt(self.head_dim)))
+            # Meta tensors carry only shapes (``utils/summary.py`` counts a
+            # forward's FLOPs on them): the plain version's products stand in.
+            if self.uses_kernel(t) and qkv.device.type != "meta":
+                out = attn_ops.packed_attention(qkv, self.heads, scale)
+            else:
+                out = attn_ops.reference_attention(qkv, self.heads, scale)
+            out = self.proj_out(out)
+            return (tokens + out).transpose(1, 2).reshape(b, c, hh, ww)
 
 
 class EmbedSequential(nn.Sequential):
@@ -214,6 +217,8 @@ class AdmUnet2d(nn.Module):
     integer timesteps, ``classes`` [B] labels or None (label -1 is the null
     class when ``has_null_class``). Returns float32 [B,H,W,out_channels].
     ``deterministic=False`` applies dropout (JAX's flag of the same name).
+    Under torch.profiler a forward is the span ``unet.forward`` around its
+    blocks' ``unet.resblock`` and ``unet.attnblock`` spans.
     ``arch_args`` holds the arguments that name the parameters, as the
     converters of ``models/convert.py`` take them."""
 
@@ -290,22 +295,23 @@ class AdmUnet2d(nn.Module):
             f"expected {self.image_size}^2 input, got {tuple(x.shape)}"
         )
         assert x.shape[-1] == self.in_channels
-        emb = self.time_embed(t)
-        if self.num_classes is not None and classes is not None:
-            valid = classes >= 0
-            class_emb = self.label_emb(torch.where(valid, classes, torch.zeros_like(classes)))
-            emb = emb + class_emb * valid[:, None].float()
+        with span("unet.forward"):
+            emb = self.time_embed(t)
+            if self.num_classes is not None and classes is not None:
+                valid = classes >= 0
+                class_emb = self.label_emb(torch.where(valid, classes, torch.zeros_like(classes)))
+                emb = emb + class_emb * valid[:, None].float()
 
-        h = x.permute(0, 3, 1, 2).to(self.dtype)
-        hs = []
-        for block in self.input_blocks:
-            h = block(h, emb, deterministic)
-            hs.append(h)
-        h = self.middle_block(h, emb, deterministic)
-        for block in self.output_blocks:
-            h = block(torch.cat([h, hs.pop()], dim=1), emb, deterministic)
-        h = self.out(h.float())
-        return h.permute(0, 2, 3, 1)
+            h = x.permute(0, 3, 1, 2).to(self.dtype)
+            hs = []
+            for block in self.input_blocks:
+                h = block(h, emb, deterministic)
+                hs.append(h)
+            h = self.middle_block(h, emb, deterministic)
+            for block in self.output_blocks:
+                h = block(torch.cat([h, hs.pop()], dim=1), emb, deterministic)
+            h = self.out(h.float())
+            return h.permute(0, 2, 3, 1)
 
 
 def build_adm_unet(args: dict, dtype: Optional[torch.dtype] = None) -> AdmUnet2d:

@@ -26,6 +26,8 @@ import math
 
 import torch
 
+from ivid_tpu_torch.utils.profiling import span
+
 HEAD_DIM = 64
 _LOG2E = math.log2(math.e)
 
@@ -187,19 +189,23 @@ class _PackedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, out, lse = ctx.saved_tensors
-        return _launch_bwd(qkv, out, dout.contiguous(), lse, ctx.heads, ctx.scale), None, None
+        with span("attention.bwd"):
+            qkv, out, lse = ctx.saved_tensors
+            return _launch_bwd(qkv, out, dout.contiguous(), lse, ctx.heads, ctx.scale), None, None
 
 
 def packed_attention(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
     """Attention over a packed ``[B, T, 3C]`` qkv tensor with 64-wide heads.
     CUDA tensors go through the kernels (or raise): K1 alone when no gradient
     is needed, K1 and K4 under autograd otherwise. CPU tensors go through
-    :func:`reference_attention`."""
-    if qkv.device.type == "cuda":
-        if torch.is_grad_enabled() and qkv.requires_grad:
-            return _PackedAttention.apply(qkv, heads, scale)
-        return _launch(qkv, heads, scale)[0]
-    if qkv.device.type == "cpu":
-        return reference_attention(qkv, heads, scale)
+    :func:`reference_attention`. Under torch.profiler the call is the span
+    ``attention.fwd`` (the host's preparation and launch on the card), and
+    K4's backward the span ``attention.bwd``."""
+    with span("attention.fwd"):
+        if qkv.device.type == "cuda":
+            if torch.is_grad_enabled() and qkv.requires_grad:
+                return _PackedAttention.apply(qkv, heads, scale)
+            return _launch(qkv, heads, scale)[0]
+        if qkv.device.type == "cpu":
+            return reference_attention(qkv, heads, scale)
     raise ValueError(f"packed_attention: unsupported device {qkv.device}")

@@ -36,6 +36,7 @@ import torch
 
 from ivid_tpu_torch.ops.geometry import triangulate_face_type
 from ivid_tpu_torch.ops.raster import gather_corners
+from ivid_tpu_torch.utils.profiling import span
 
 FAR = 9.0  # empty z-buffer value; valid window z lies in [0, 1]
 TC = 128  # triangles per chunk
@@ -625,10 +626,15 @@ def raster(cols: Cols, r: int, A: int) -> DenseRaster:
     the raster) for CUDA tensors, which launches or raises; the plain version
     (:func:`prep_pack`, :func:`raster_rows_reference`) for CPU tensors.
     Returns a DenseRaster over B·r² flat pixels; buffer b owns ids
-    [b·r², (b+1)·r²)."""
+    [b·r², (b+1)·r²). Under torch.profiler K2's two calls are the spans
+    ``raster_dense.bins`` (with its wait for the lists' length) and
+    ``raster_dense.raster``."""
     dev = cols.valid.device
     if dev.type == "cuda":
-        return raster_tiles(*bin_tiles(cols, r), r, A)
+        with span("raster_dense.bins"):
+            bins = bin_tiles(cols, r)
+        with span("raster_dense.raster"):
+            return raster_tiles(*bins, r, A)
     if dev.type == "cpu":
         return raster_rows_reference(prep_pack(cols, r, A), r, A)
     raise ValueError(f"raster: unsupported device {dev}")

@@ -21,6 +21,7 @@ from typing import Sequence
 import torch
 
 from ivid_tpu_torch.ops.raster import FragmentBatch, _concat
+from ivid_tpu_torch.utils.profiling import span
 
 FAR = 9.0  # depth of invalid fragments; valid window z lies in [0, 1]
 
@@ -93,12 +94,15 @@ def resolve_zbuffer_tiled(fragments: Sequence[FragmentBatch], payloads: Sequence
     """:func:`ivid_tpu_torch.ops.raster.resolve_zbuffer` on CUDA tensors
     (payload K ≤ 4): ``(payload [.., R, R, K], depth_win [.., R, R], covered
     [.., R, R])`` in image row order, with a leading buffer axis when
-    ``num_buffers > 1``."""
+    ``num_buffers > 1``. Under torch.profiler the two steps are the spans
+    ``raster_tiled.prepare`` and ``raster_tiled.resolve``."""
     if fragments[0].depth.device.type != "cuda":
         raise ValueError("resolve_zbuffer_tiled runs on CUDA tensors; "
                          "CPU tensors take raster.resolve_zbuffer_scatter")
-    starts, z, payload, k = prepare(fragments, payloads, render_size, num_buffers)
-    out, depth, covered = launch(starts, z, payload, k, render_size, num_buffers)
+    with span("raster_tiled.prepare"):
+        starts, z, payload, k = prepare(fragments, payloads, render_size, num_buffers)
+    with span("raster_tiled.resolve"):
+        out, depth, covered = launch(starts, z, payload, k, render_size, num_buffers)
     r = render_size
     lead = (num_buffers,) if num_buffers > 1 else ()
     return (out.reshape(lead + (r, r, k)), depth.reshape(lead + (r, r)),

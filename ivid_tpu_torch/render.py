@@ -145,7 +145,7 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render: no CUDA device (pass --device cpu to render on the CPU)")
     t_start = time.perf_counter()
-    clock = StageClock(device)
+    clock = StageClock(device, "render")
     out_dir = opt.output_dir or opt.scene_dir
     os.makedirs(os.path.join(out_dir, "results"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "videos"), exist_ok=True)

@@ -13,6 +13,9 @@ this port's UNet shares).
 
 Besides the JAX CLI's records it writes every scene's npz for the ``random``
 viewset too. Depth grids use the INFERNO colormap, as the JAX CLI's.
+``--profile_dir DIR`` runs the first batch under torch.profiler and writes
+its Chrome trace, with the pipeline's, samplers' and UNet's spans, into
+``DIR`` (as ``train.py --profile_dir`` does for the first steps).
 
 ``--data_parallel`` shards every batch over the ranks that
 ``torch.distributed.run`` starts (the reference's per-GPU sampling
@@ -34,6 +37,7 @@ viewset's orbit and sends them to the others.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -68,6 +72,8 @@ def parse_args(argv=None):
                         "and mask conditioning")
     p.add_argument("--data_parallel", action="store_true",
                    help="shard every batch over the ranks of torch.distributed.run")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="trace the first batch with torch.profiler into this directory")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -153,6 +159,7 @@ def _sample(opt, device, t_start) -> dict:
     from ivid_tpu_torch.inference.pipeline import ScenePipeline
     from ivid_tpu_torch.inference.viewsets import build_viewset
     from ivid_tpu_torch.utils.images import parse_int_list
+    from ivid_tpu_torch.utils.profiling import trace
 
     rank, world = parallel.rank(), parallel.world_size()
     cfg_uncond = Config.load(opt.config_uncond)
@@ -223,10 +230,15 @@ def _sample(opt, device, t_start) -> dict:
         rng = TorchNoise.seeded(1234 + start, device)
         if world > 1:
             rng = parallel.RowShardNoise(rng, rank, world)
-        state, samples, conds = pipe.sample_batch(rng, views, batch=lb, classes=b_classes,
-                                                  noise=noise)
-        samples = samples.cpu().numpy()
-        conds = {k: v.cpu().numpy() for k, v in conds.items()} if conds else None
+        profiled = opt.profile_dir is not None and start == 0
+        with (trace(opt.profile_dir, cuda=device.type == "cuda", rank=rank) if profiled
+              else contextlib.nullcontext()):
+            state, samples, conds = pipe.sample_batch(rng, views, batch=lb, classes=b_classes,
+                                                      noise=noise)
+            samples = samples.cpu().numpy()
+            conds = {k: v.cpu().numpy() for k, v in conds.items()} if conds else None
+        if profiled:
+            print(f"profiler trace of the first batch written to {opt.profile_dir}", flush=True)
         all_samples.append(samples)
         all_conds.append(conds)
         n_views = samples.shape[1]

@@ -83,7 +83,7 @@ def main(argv=None, noise=None) -> dict:
     fw = build_model(cfg, opt.ckpt_sr, 0, device)
     s_hi = cfg.backbone["args"]["image_size"]
     num_classes = cfg.backbone["args"].get("num_classes")
-    clock = StageClock(device)
+    clock = StageClock(device, "sr")
 
     out_dir = opt.output_dir or opt.scene_dir
     os.makedirs(os.path.join(out_dir, "results_sr"), exist_ok=True)

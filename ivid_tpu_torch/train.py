@@ -13,7 +13,8 @@ the kernels' plain versions.
 its run directory, whose ``ckpts/`` hold ``.msgpack`` files (the trainer's
 ``load`` says what carries over); the port's own checkpoints stay ``.pt``.
 ``--profile_dir DIR`` runs the first 3 steps (real optimizer steps, counted)
-under torch.profiler and writes a Chrome trace into ``DIR``.
+under torch.profiler and writes a Chrome trace, with the trainer's spans
+(``trainer.step`` and its stages), into ``DIR``.
 
 Data parallel, one process per GPU::
 

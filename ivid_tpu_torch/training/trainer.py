@@ -70,6 +70,7 @@ from ivid_tpu_torch.parallel import tensor as tp
 from ivid_tpu_torch.training import checkpoint as ckpt_io
 from ivid_tpu_torch.training import warp_cond
 from ivid_tpu_torch.utils.images import save_image_grid
+from ivid_tpu_torch.utils.profiling import span
 
 
 class StepRecord:
@@ -77,7 +78,11 @@ class StepRecord:
     (``trainer.record = StepRecord()``): each step's loss as a device scalar
     (no host sync per step), the seconds the step waited for the loader's
     items, and, with ``timing`` on CUDA, CUDA events at the boundaries of the
-    step's stages."""
+    step's stages. The trainer marks the same stages as spans,
+    ``trainer.<stage>``, whether or not it keeps a record (the span of
+    ``data_and_warp`` covers the conditioning alone: the loader's wait is
+    ``trainer.loader_wait``, and the batch's copy to the device lies between
+    them)."""
 
     STAGES = ("data_and_warp", "forward", "backward", "optimizer")
 
@@ -251,10 +256,13 @@ class BasicTrainer:
     def _train_step(self, batch: dict, rng, events=None) -> dict:
         """One step on a device batch. ``events``, when given, are the five
         CUDA events of :attr:`StepRecord.STAGES`' boundaries; this records
-        the middle three (conditioning, loss and backward done)."""
+        the middle three (conditioning, loss and backward done). Each stage
+        is also a span, ``trainer.<stage>`` (a forward and a backward for
+        each microbatch)."""
         mark = (lambda i: events[i].record()) if events is not None else (lambda i: None)
         rng_prep, rng_loss = rng.split()
-        batch = self.prepare_batch(batch, rng_prep)
+        with span("trainer.data_and_warp"):
+            batch = self.prepare_batch(batch, rng_prep)
         mark(1)
         if self.data_size > 1:
             rng_loss = parallel.RowShardNoise(rng_loss, self.data_rank, self.data_size)
@@ -270,23 +278,28 @@ class BasicTrainer:
                 sync = (contextlib.nullcontext() if self.ddp is None or i == n - 1
                         else self.ddp.no_sync())
                 with sync:
-                    loss, metrics = self._loss(rng_loss.fold_in(i),
-                                               {k: v[i] for k, v in micro.items()})
+                    with span("trainer.forward"):
+                        loss, metrics = self._loss(rng_loss.fold_in(i),
+                                                   {k: v[i] for k, v in micro.items()})
                     if i == n - 1:
                         mark(2)
-                    loss.backward()
+                    with span("trainer.backward"):
+                        loss.backward()
                 per.append(metrics)
             for p in self.params.values():
                 if p.grad is not None:
                     p.grad.div_(n)
             metrics = {k: torch.stack([m[k] for m in per]).mean() for k in per[0]}
         else:
-            loss, metrics = self._loss(rng_loss, batch)
+            with span("trainer.forward"):
+                loss, metrics = self._loss(rng_loss, batch)
             mark(2)
-            loss.backward()
+            with span("trainer.backward"):
+                loss.backward()
         mark(3)
-        self.optimizer.step()
-        self.update_ema()
+        with span("trainer.optimizer"):
+            self.optimizer.step()
+            self.update_ema()
         return metrics
 
     def _loss(self, rng, batch):
@@ -311,25 +324,31 @@ class BasicTrainer:
             torch._foreach_add_(vals, params, alpha=1.0 - rate)
 
     def run_step(self) -> dict:
-        rec = self.record
-        events = None
-        if rec is not None and rec.timing and self.device.type == "cuda":
-            events = tuple(torch.cuda.Event(enable_timing=True)
-                           for _ in range(len(StepRecord.STAGES) + 1))
-            events[0].record()
-        if self.loader is None:
-            self._build_loader(start=self._loader_obj.position)
-        waited = self._loader_obj.wait_seconds
-        batch = self._device_batch(next(self.loader))
-        self.rng, step_rng = self.rng.split()
-        metrics = self._train_step(batch, step_rng, events)
-        if rec is not None:
-            if events is not None:
-                events[-1].record()
-                rec.events.append(events)
-            rec.losses.append(metrics["loss"])
-            rec.loader_waits.append(self._loader_obj.wait_seconds - waited)
-        return metrics
+        """One training step: the loader's next batch, the step, and what
+        :attr:`record` keeps. Under torch.profiler the span ``trainer.step``
+        around ``trainer.loader_wait`` and the stages' spans."""
+        with span("trainer.step"):
+            rec = self.record
+            events = None
+            if rec is not None and rec.timing and self.device.type == "cuda":
+                events = tuple(torch.cuda.Event(enable_timing=True)
+                               for _ in range(len(StepRecord.STAGES) + 1))
+                events[0].record()
+            if self.loader is None:
+                self._build_loader(start=self._loader_obj.position)
+            waited = self._loader_obj.wait_seconds
+            with span("trainer.loader_wait"):
+                items = next(self.loader)
+            batch = self._device_batch(items)
+            self.rng, step_rng = self.rng.split()
+            metrics = self._train_step(batch, step_rng, events)
+            if rec is not None:
+                if events is not None:
+                    events[-1].record()
+                    rec.events.append(events)
+                rec.losses.append(metrics["loss"])
+                rec.loader_waits.append(self._loader_obj.wait_seconds - waited)
+            return metrics
 
     # ---- checkpoints ----
 

@@ -18,6 +18,7 @@ from ivid_tpu_torch.ops import camera as cam
 from ivid_tpu_torch.ops import geometry as geom
 from ivid_tpu_torch.ops import image as im_ops
 from ivid_tpu_torch.ops import warp as warp_ops
+from ivid_tpu_torch.utils.profiling import span
 
 
 def presample(rgbd01, r, *, augments, pose_std):
@@ -88,17 +89,24 @@ def synthesize_single(rgbd01, r, *, augments, pose_std, near, far):
 def synthesize_batch(rgbd01, rngs, *, augments, pose_std, near, far):
     """:func:`synthesize_single` over a [B,s,s,4] batch with one noise source
     per sample, the warp batched over the whole batch. Returns the same keys
-    with a leading batch axis."""
+    with a leading batch axis. Under torch.profiler its three parts are the
+    spans ``warp_cond.presample``, ``warp_cond.warp`` and
+    ``warp_cond.postprocess``."""
     augments = tuple(augments)
-    pre = [presample(x, r, augments=augments, pose_std=pose_std) for x, r in zip(rgbd01, rngs)]
-    res = warp_ops.forward_backward_warp_batch(
-        torch.stack([p[0] for p in pre]), torch.stack([p[1] for p in pre]),
-        padding=rgbd01.shape[1], near=near, far=far,
-    )
-    posts = [
-        postprocess(x, r, res["color"][i], res["depth"][i], res["mask"][i], augments=augments)
-        for i, (x, r) in enumerate(zip(rgbd01, rngs))
-    ]
-    out = {k: torch.stack([p[k] for p in posts]) for k in posts[0]}
+    with span("warp_cond.presample"):
+        pre = [presample(x, r, augments=augments, pose_std=pose_std)
+               for x, r in zip(rgbd01, rngs)]
+    with span("warp_cond.warp"):
+        res = warp_ops.forward_backward_warp_batch(
+            torch.stack([p[0] for p in pre]), torch.stack([p[1] for p in pre]),
+            padding=rgbd01.shape[1], near=near, far=far,
+        )
+    with span("warp_cond.postprocess"):
+        posts = [
+            postprocess(x, r, res["color"][i], res["depth"][i], res["mask"][i],
+                        augments=augments)
+            for i, (x, r) in enumerate(zip(rgbd01, rngs))
+        ]
+        out = {k: torch.stack([p[k] for p in posts]) for k in posts[0]}
     out["pose"] = torch.stack([p[2] for p in pre])
     return out

@@ -1,6 +1,8 @@
-"""A torch.profiler trace around a region: the port's counterpart of
-``ivid_tpu/utils/profiling.py``'s ``trace`` (``train.py --profile_dir``).
-The trainer's ``StepRecord`` takes the place of its ``StepTimer``."""
+"""Profiling: named spans on the profiler's timeline, and a torch.profiler
+trace around a region, the port's counterpart of
+``ivid_tpu/utils/profiling.py``'s ``trace`` (``train.py --profile_dir``,
+``sample.py --profile_dir``). The trainer's ``StepRecord`` takes the place
+of its ``StepTimer``."""
 
 from __future__ import annotations
 
@@ -10,6 +12,21 @@ import time
 from typing import Iterator
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context manager marking its body as ``name`` on the profiler's
+    timeline (a ``record_function``, on the same clock as the device's
+    activity) while a torch.profiler session records this thread; otherwise
+    a shared no-op, after one check of the profiler's state. Threads that
+    launch device work carry the session: the one that started it, and the
+    autograd engine's in a backward it runs."""
+    if not _profiling():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager

@@ -188,7 +188,7 @@ def test_render_frame_matches_jax(tmp_path, monkeypatch, pose):
         np.testing.assert_allclose(raw[k][a], want[k][a], atol=1e-4, rtol=1e-4, err_msg=k)
 
     color, depth = render.render_frame(meshes, colors, torch.from_numpy(mv), SSAA,
-                                       StageClock(torch.device("cpu")))
+                                       StageClock(torch.device("cpu"), "render"))
     color, depth = color.numpy(), depth.numpy()
     assert color.shape == (S, S, 3) and depth.shape == (S, S, 1)
     np.testing.assert_array_equal(color, tim.resize_lanczos_8bit(raw_t["color"], S).numpy())
