@@ -51,7 +51,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    classes, K1 f32 at its five sites); then the full-width SR UNet
    (``rgbd_imagenet_adm_256_128_small_sr.json``, 256², batch 1 with a
    class) in f32 and with its bf16 torso, its K1 sites counted from the
-   model;
+   model; then ``[unet graph]``: the inference forward replayed as a CUDA
+   graph against the eager forward on the four benchmark models (the
+   single-category pair at batch 1, the flagship pair 16 wide), bit for
+   bit with the same K1 launches, host ms per forward each way, a 3-step
+   DDIM chain each way, reloads and the calls that stay eager;
 8. a small 3-view sampling chain (32² f32 UNets, K1 and K2 on its path) on
    the card against the same weights and noise on the CPU plain path; and a
    small SR chain (16² -> 32² SuperResCFG, 5 guided DDIM steps) the same
@@ -1660,6 +1664,150 @@ def phase_unet():
     torch.backends.cudnn.allow_tf32 = True
 
 
+def phase_unet_graph():
+    """``[unet graph]``: the UNet's inference forward replayed as a CUDA
+    graph (``models/adm.py``, ``InferenceGraphs``) against the eager
+    forward of the same call, on the two single-category models at batch 1
+    and the two flagship models 16 wide with classes (8 labels and 8 null),
+    PyTorch's default precision settings, seeded weights: three calls each,
+    the first of them a warm-up and capture, bit-equal to eager with the
+    same K1 launches; the memory the graph reserves, the first call's ms,
+    and host ms per forward, eager and replayed. Then a
+    3-step ``ddim_sample`` graphed against eager (the single-category uncond
+    model at batch 1, the flagship CFG model at batch 8), an assigned reload
+    (drops the graphs), an in-place reload (keeps them and replays the new
+    weights), and calls that stay eager: grad-enabled, and a UNet holding a
+    layer of ``parallel/tensor.py``. The eager side runs the same models in
+    train mode (the forward is the same; train mode is not graphed)."""
+    import torch
+
+    from ivid_tpu_torch.config import Config, build_backbone, build_framework_from_config
+    from ivid_tpu_torch.diffusion import samplers
+    from ivid_tpu_torch.diffusion.noise import KeyedNoise
+    from ivid_tpu_torch.models.adm import randomize_parameters
+    from ivid_tpu_torch.ops import attention
+    from ivid_tpu_torch.parallel import tensor as tp
+
+    def call(model, args, graphed):
+        """The output and K1's launches of one no-grad call."""
+        model.train(not graphed)
+        before = attention.k1_counts()
+        with torch.no_grad():
+            out = model(*args)
+        return out, attention.k1_counts_since(before)
+
+    def compare(got, want):
+        return torch.equal(got, want), (got - want).abs().max().item()
+
+    failures = []
+    models = {}
+    for tag, path, batch in (("sc128 uncond", UNCOND_CFG, 1), ("sc128 cond", COND_CFG, 1),
+                             ("in128 uncond", FLAGSHIP_UNCOND, 16),
+                             ("in128 cond", FLAGSHIP_COND, 16)):
+        cfg = Config.load(path)
+        model = randomize_parameters(build_backbone(cfg), seed=0).to("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        s = model.image_size
+
+        def inputs():
+            x = torch.randn((batch, s, s, model.in_channels), generator=gen, device="cuda")
+            t = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
+            if not model.num_classes:
+                return x, t, None
+            c = torch.randint(0, model.num_classes, (batch // 2,), generator=gen, device="cuda")
+            return x, t, torch.cat([c, -torch.ones_like(c)])
+
+        calls = [inputs() for _ in range(3)]
+        eager = [call(model, a, False) for a in calls]
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        graphed = [call(model, calls[0], True)]
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        graphed += [call(model, a, True) for a in calls[1:]]
+        torch.cuda.empty_cache()
+        pool_gib = (torch.cuda.memory_reserved() - mem0) / 2 ** 30
+        same = [compare(g[0], e[0]) for g, e in zip(graphed, eager)]
+        counts_equal = all(g[1] == e[1] for g, e in zip(graphed, eager))
+        with torch.no_grad():
+            model.eval()
+            graph_ms = cuda_time_ms(lambda: model(*calls[0]), reps=10)
+            model.train()
+            eager_ms = cuda_time_ms(lambda: model(*calls[0]), reps=10)
+        model.eval()
+        # A grad-enabled call stays eager (and adds no graph).
+        grad_out = model(*calls[1])
+        grad_eager = len(model.graphs.entries) == 1 and grad_out.requires_grad
+        log(f"[unet graph] {tag}: {tuple(calls[0][0].shape)}, classes "
+            f"{calls[0][2] is not None}: replayed vs eager bit-equal {[e for e, _ in same]} "
+            f"(largest |diff| {max(d for _, d in same):.3e}); K1 launches per call eager "
+            f"{[e[1][0] for e in eager]}, graphed {[g[1][0] for g in graphed]} (equal "
+            f"{counts_equal}); graphs {len(model.graphs.entries)}, memory reserved for them "
+            f"{pool_gib:.3f} GiB; the first call (warm-up and capture) {first_ms:.1f} ms; host "
+            f"ms per forward eager {eager_ms:.2f}, replayed {graph_ms:.2f}; grad-enabled call "
+            f"eager {grad_eager}")
+        if not (all(e for e, _ in same) and counts_equal and grad_eager):
+            failures.append(tag)
+        del grad_out
+        models[tag] = (cfg, model, calls)
+
+    # A 3-step DDIM chain, graphed against eager.
+    for tag, batch, cond_fn in (("sc128 uncond", 1, None),
+                                ("in128 uncond", 8, lambda: {"classes": torch.arange(
+                                    8, device="cuda") * 101 % 1000})):
+        cfg, model, _ = models[tag]
+        fw = build_framework_from_config(cfg, model, device=torch.device("cuda"))
+        outs, counts = [], []
+        for graphed in (False, True):
+            model.train(not graphed)
+            before = attention.k1_counts()
+            outs.append(samplers.ddim_sample(
+                fw, KeyedNoise.seeded(3, "cuda"), num=batch, image_size=128,
+                cond=cond_fn() if cond_fn else None, guidance=3.0 if cond_fn else 0.0,
+                steps=3)["samples"])
+            counts.append(attention.k1_counts_since(before))
+        equal, diff = compare(outs[1], outs[0])
+        log(f"[unet graph] {tag} ddim_sample 3 steps, batch {batch}: graphed vs eager "
+            f"bit-equal {equal} (largest |diff| {diff:.3e}); K1 launches eager {counts[0]}, "
+            f"graphed {counts[1]}")
+        if not (equal and counts[0] == counts[1]):
+            failures.append(f"{tag} ddim")
+    for tag in ("in128 uncond", "in128 cond", "sc128 cond"):
+        del models[tag]
+
+    # Reloads and a tensor-parallel layer, on the sc128 uncond model.
+    cfg, model, calls = models.pop("sc128 uncond")
+    model.eval()
+    with torch.no_grad():
+        model.load_state_dict({k: v.clone() for k, v in model.state_dict().items()},
+                              assign=True)
+        dropped = not model.graphs.entries
+        call(model, calls[0], True)  # the capture
+        again = compare(call(model, calls[0], True)[0], call(model, calls[0], False)[0])[0]
+        model.load_state_dict(randomize_parameters(build_backbone(cfg), seed=5).state_dict())
+        kept = len(model.graphs.entries) == 1
+        new_eager = call(model, calls[0], False)[0]
+        new_graph = call(model, calls[0], True)[0]
+        in_place = kept and len(model.graphs.entries) == 1 and torch.equal(new_graph, new_eager)
+        conv = model.input_blocks[1][0].in_layers[2]
+        col = tp.ColumnConv2d(conv.in_channels, conv.out_channels, 3, padding=1).to("cuda")
+        col.load_state_dict(conv.state_dict())
+        model.input_blocks[1][0].in_layers[2] = col
+        model.graphs.clear()
+        tp_out = call(model, calls[0], True)[0]
+        tp_eager = not model.graphs.entries and torch.equal(tp_out, new_eager)
+    log(f"[unet graph] sc128 uncond: assigned reload drops the graphs {dropped}, the next "
+        f"replay bit-equal {again}; in-place reload keeps them and replays the new weights "
+        f"bit-equal {in_place}; with a tensor-parallel layer eager {tp_eager}")
+    if not (dropped and again and in_place and tp_eager):
+        failures.append("reloads / tensor parallelism")
+    del model, models
+    torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"[unet graph] failed its checks: {failures}")
+
+
 def reset_counts():
     from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled, resolve_variants
 
@@ -2687,6 +2835,7 @@ def main():
     k1_f32, k4_f32 = run_phase(phase_f32_attention)
     run_phase(phase_unet)
     run_phase(phase_flagship_unet)
+    run_phase(phase_unet_graph)
     sr_sites = run_phase(phase_sr_unet)
     run_phase(phase_chain)
     run_phase(phase_sr_chain)

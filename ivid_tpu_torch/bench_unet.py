@@ -24,7 +24,9 @@ Cells:
   the repository).
 
 The swap replaces ``ivid_tpu_torch.ops.attention.packed_attention`` inside
-this process only, for the turn, and puts it back. Times are CUDA events
+this process only, for the turn, and puts it back; it drops the model's
+CUDA graphs, which replay the version they were captured with, so the
+uncond step's turns replay graphs of their own version. Times are CUDA events
 around ``--reps`` steps after one warm-up step, per step, in ms; with each
 turn, the K1/K4 launches it made (0 for the other versions); per version,
 one more step under torch.profiler (device time summed over its kernels,
@@ -79,7 +81,14 @@ def _profile(step) -> dict:
             "top": [[round(ms, 4), n, name[:80]] for ms, n, name in rows[:5]]}
 
 
-def _turns(step, reps):
+def _use(fn, model) -> None:
+    """Route the attention sites through ``fn``, and drop ``model``'s CUDA
+    graphs, which call the version they were captured with."""
+    attention.packed_attention = fn
+    model.graphs.clear()
+
+
+def _turns(step, reps, model):
     """{version: [ms per step, ...]}, {version: [K1, K4 launches]} and
     {version: profile of one more step} over the turns of ORDER, each turn
     one warm-up step and ``reps`` timed ones."""
@@ -87,14 +96,14 @@ def _turns(step, reps):
     real = attention.packed_attention
     try:
         for name in ORDER:
-            attention.packed_attention = VERSIONS[name]
+            _use(VERSIONS[name], model)
             before = attention.launches, attention.bwd_launches
             ms.setdefault(name, []).append(timing.host_ms(step, reps=reps, warmup=1))
             launches[name] = [attention.launches - before[0], attention.bwd_launches - before[1]]
             if name not in prof:
                 prof[name] = _profile(step)
     finally:
-        attention.packed_attention = real
+        _use(real, model)
     return ms, launches, prof
 
 
@@ -118,15 +127,15 @@ def uncond_cell(fw, batch: int, reps: int, seed: int = 1) -> dict:
         mean, _, log_var = sched.q_posterior_mean_variance(s, pred, x, t)
         return mean + torch.exp(0.5 * log_var) * z
 
-    ms, launches, prof = _turns(step, reps)
+    ms, launches, prof = _turns(step, reps, fw.model)
     outs = {}
     real = attention.packed_attention
     try:
         for name, fn in VERSIONS.items():
-            attention.packed_attention = fn
+            _use(fn, fw.model)
             outs[name] = step()
     finally:
-        attention.packed_attention = real
+        _use(real, fw.model)
     ref = outs["plain"]
     diff = {n: ((o - ref).abs().max() / ref.abs().max()).item() for n, o in outs.items()}
     return {"cell": "uncond step", "batch": batch, "forward_batch": 2 * batch, "ms": ms,
@@ -148,7 +157,7 @@ def train_cell(fw, cfg, batch: int, reps: int) -> dict:
     dev = next(fw.model.parameters()).device
     tr = BasicTrainer(fw, data, tempfile.mkdtemp(prefix="bench_unet_"), device=dev, **targs)
     torch.cuda.reset_peak_memory_stats()
-    ms, launches, prof = _turns(tr.run_step, reps)
+    ms, launches, prof = _turns(tr.run_step, reps, fw.model)
     return {"cell": "train step", "batch": batch, "batch_split": tr.batch_split, "ms": ms,
             "launches": launches, "profile": prof,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}

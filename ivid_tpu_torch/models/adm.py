@@ -28,6 +28,11 @@ Attention mirrors the JAX package's choice of implementation: the packed
 CUDA kernel (:func:`ivid_tpu_torch.ops.attention.packed_attention`) where it
 would pick its packed Pallas kernel (T ≥ 512 tokens, 64-wide heads), the plain
 matmul form elsewhere.
+
+An inference forward on the card replays a CUDA graph of itself
+(:class:`InferenceGraphs`, :meth:`AdmUnet2d.graphable`): at batch 1 the
+forward's ~1,500 eager launches take the host several times as long as the
+device takes to run them.
 """
 
 from __future__ import annotations
@@ -39,9 +44,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.hooks
 
 from ivid_tpu_torch.ops import attention as attn_ops
 from ivid_tpu_torch.utils.profiling import span
+
+#: CUDA graphs one UNet keeps, one per call signature: a sampler calls each
+#: model with one signature; a signature past the bound runs eagerly.
+MAX_GRAPHS = 4
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_freq: float = 10000.0) -> torch.Tensor:
@@ -212,13 +222,121 @@ class EmbedSequential(nn.Sequential):
         return x
 
 
+class _Graph:
+    """One captured forward: the graph, its static inputs and output, and
+    the K1 launches its capture counted (:func:`attn_ops.k1_counts_since`)."""
+
+    def __init__(self, graph, inputs, out, k1_counts):
+        self.graph, self.inputs, self.out, self.k1_counts = graph, inputs, out, k1_counts
+
+    def replay(self, *args) -> torch.Tensor:
+        with span("unet.graph_replay"), torch.cuda.device(self.out.device):
+            for static, a in zip(self.inputs, args):
+                if static is not None:
+                    static.copy_(a)
+            self.graph.replay()
+            attn_ops.add_k1_counts(self.k1_counts)
+            return self.out.clone()
+
+
+class InferenceGraphs:
+    """CUDA graphs of one UNet's inference forward, one per call signature
+    (:meth:`key`), at most ``limit``: the cache behind the graphed path of
+    :meth:`AdmUnet2d.forward`.
+
+    A signature's first call runs the forward eagerly on a side stream (the
+    warm-up: cuDNN's and cuBLAS's lazy set-up and K1's first launch happen
+    outside the capture) and returns that output; then it captures the
+    forward with the inputs copied to static buffers. Every later call
+    copies its inputs into those buffers, replays, and returns a clone of
+    the static output, which the next call overwrites. The same kernels run
+    in the same order on the same types as eagerly. K1's launch counters
+    (``ops/attention.py``) count what ran on the device: the capture takes
+    back what it counted, each replay adds it again.
+
+    The graphs of one cache share a memory pool and the side stream: every
+    graph's static output lives as long as the graph, so a capture reuses
+    only other graphs' temporaries, and a module's calls run one after
+    another on the caller's stream, as any graph's replays must.
+
+    A graph holds the addresses of the tensors it read. Copying into the
+    parameters in place (``load_state_dict`` without ``assign``,
+    ``Tensor.copy_``, an optimizer's step) keeps every graph valid and
+    their replays read the new values; whatever gives a parameter new
+    storage has to :meth:`clear` the cache: :meth:`AdmUnet2d._apply`
+    (``.to()``, ``.cuda()``, ``.float()``) and ``load_state_dict(...,
+    assign=True)`` on the UNet do, and ``parallel.tensor.shard_unet`` does
+    when it replaces layers. Setting ``.data`` does not. A module holding
+    graphs cannot be deep-copied or pickled."""
+
+    def __init__(self, limit: int = MAX_GRAPHS):
+        self.limit = limit
+        self.clear()
+
+    def clear(self) -> None:
+        self.entries = {}
+        self.pool = self.stream = None
+        #: ``(hook stamp, whether the layers allow a replay)``, see
+        #: :meth:`AdmUnet2d.graphable`.
+        self.layers_checked = None
+
+    @staticmethod
+    def key(x: torch.Tensor, t: torch.Tensor, classes: Optional[torch.Tensor]) -> tuple:
+        """The signature a graph is captured for: the input's shape and
+        type, the timesteps' shape, whether labels are given, and the TF32
+        settings, which choose the convolution and matmul kernels a capture
+        bakes in (callers switch TF32 off to compare with the CPU)."""
+        return (tuple(x.shape), x.dtype, tuple(t.shape), classes is None,
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+    def run(self, forward, x, t, classes) -> Optional[torch.Tensor]:
+        """``forward(x, t, classes)`` through this cache: a replay, or a
+        signature's first call (a warm-up and a capture); None for a new
+        signature past the bound (the caller runs it eagerly)."""
+        key = self.key(x, t, classes)
+        entry = self.entries.get(key)
+        if entry is not None:
+            return entry.replay(x, t, classes)
+        if len(self.entries) >= self.limit:
+            return None
+        out, self.entries[key] = self._capture(forward, x, t, classes)
+        return out
+
+    def _capture(self, forward, x, t, classes):
+        with torch.cuda.device(x.device):
+            caller = torch.cuda.current_stream()
+            if self.stream is None:
+                self.stream = torch.cuda.Stream()
+            # The side stream waits for the caller's queued work, so what it
+            # allocates (an earlier warm-up's output the caller has freed
+            # among it) is no longer read; the caller waits for the warm-up.
+            self.stream.wait_stream(caller)
+            with torch.cuda.stream(self.stream):
+                out = forward(x, t, classes)
+            caller.wait_stream(self.stream)
+            inputs = [None if a is None else a.clone() for a in (x, t, classes)]
+            before = attn_ops.k1_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                static_out = forward(*inputs)
+        counts = attn_ops.k1_counts_since(before)
+        attn_ops.add_k1_counts(counts, -1)
+        if self.pool is None:
+            self.pool = graph.pool()
+        return out, _Graph(graph, inputs, static_out, counts)
+
+
 class AdmUnet2d(nn.Module):
     """The ADM UNet. ``unet(x, t, classes)``: ``x`` [B,H,W,C] NHWC, ``t`` [B]
     integer timesteps, ``classes`` [B] labels or None (label -1 is the null
     class when ``has_null_class``). Returns float32 [B,H,W,out_channels].
     ``deterministic=False`` applies dropout (JAX's flag of the same name).
-    Under torch.profiler a forward is the span ``unet.forward`` around its
-    blocks' ``unet.resblock`` and ``unet.attnblock`` spans.
+    A call that :meth:`graphable` admits replays a CUDA graph of the forward
+    from ``graphs`` (:class:`InferenceGraphs`); every other call runs
+    eagerly. Under torch.profiler a forward is the span ``unet.forward``
+    around its blocks' ``unet.resblock`` and ``unet.attnblock`` spans, or,
+    for a replay, around the span ``unet.graph_replay``.
     ``arch_args`` holds the arguments that name the parameters, as the
     converters of ``models/convert.py`` take them."""
 
@@ -234,6 +352,7 @@ class AdmUnet2d(nn.Module):
         self.in_channels = in_channels
         self.num_classes = num_classes
         self.dtype = dtype
+        self.graphs = InferenceGraphs()
         self.arch_args = dict(
             image_size=image_size, model_channels=model_channels, num_res_blocks=num_res_blocks,
             channel_mult=list(channel_mult), attention_resolutions=list(attention_resolutions),
@@ -288,6 +407,46 @@ class AdmUnet2d(nn.Module):
         self.out = nn.Sequential(GroupNorm32(num_groups, ch), nn.SiLU(),
                                  _conv(ch, out_channels, 3, zero=True))
 
+    def graphable(self, x: torch.Tensor, deterministic: bool = True) -> bool:
+        """Whether a call replays a CUDA graph: ``x`` on the card, no
+        gradient, eval mode, ``deterministic``, and nothing that a replay
+        would bypass: no layer of ``parallel/tensor.py`` (they all-reduce
+        inside the forward), no forward hook on a layer or on every module,
+        and no dispatch mode (``FlopCounterMode`` counts the operations a
+        replay does not call)."""
+        return (x.device.type == "cuda" and deterministic and not self.training
+                and not torch.is_grad_enabled() and not torch._C._len_torch_dispatch_stack()
+                and self._layers_replayable())
+
+    def _layers_replayable(self) -> bool:
+        """No layer of tensor parallelism and no forward hook below the
+        UNet. The walk over the layers is redone only after a hook has been
+        registered anywhere (the handles' counter moved) or the graphs were
+        dropped, since it costs more than a replay."""
+        from ivid_tpu_torch.parallel import tensor as tp
+
+        nn_module = torch.nn.modules.module
+        stamp = torch.utils.hooks.RemovableHandle.next_id
+        checked = self.graphs.layers_checked
+        if checked is None or checked[0] != stamp:
+            hooked = bool(nn_module._global_forward_hooks or nn_module._global_forward_pre_hooks)
+            ok = not hooked and not any(
+                isinstance(m, tp.LAYERS) or m._forward_hooks or m._forward_pre_hooks
+                for m in self.modules() if m is not self)
+            checked = self.graphs.layers_checked = (stamp, ok)
+        return checked[1]
+
+    def _apply(self, fn, *args, **kwargs):
+        self.graphs.clear()  # the parameters may get new storage
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        """``nn.Module.load_state_dict``; with ``assign`` the parameters
+        become the given tensors, so the captured graphs are dropped."""
+        if assign:
+            self.graphs.clear()
+        return super().load_state_dict(state_dict, strict=strict, assign=assign)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 classes: Optional[torch.Tensor] = None,
                 deterministic: bool = True) -> torch.Tensor:
@@ -296,22 +455,30 @@ class AdmUnet2d(nn.Module):
         )
         assert x.shape[-1] == self.in_channels
         with span("unet.forward"):
-            emb = self.time_embed(t)
-            if self.num_classes is not None and classes is not None:
-                valid = classes >= 0
-                class_emb = self.label_emb(torch.where(valid, classes, torch.zeros_like(classes)))
-                emb = emb + class_emb * valid[:, None].float()
+            if self.graphable(x, deterministic):
+                out = self.graphs.run(self._forward, x, t, classes)
+                if out is not None:
+                    return out
+            return self._forward(x, t, classes, deterministic)
 
-            h = x.permute(0, 3, 1, 2).to(self.dtype)
-            hs = []
-            for block in self.input_blocks:
-                h = block(h, emb, deterministic)
-                hs.append(h)
-            h = self.middle_block(h, emb, deterministic)
-            for block in self.output_blocks:
-                h = block(torch.cat([h, hs.pop()], dim=1), emb, deterministic)
-            h = self.out(h.float())
-            return h.permute(0, 2, 3, 1)
+    def _forward(self, x, t, classes=None, deterministic: bool = True) -> torch.Tensor:
+        """The eager forward."""
+        emb = self.time_embed(t)
+        if self.num_classes is not None and classes is not None:
+            valid = classes >= 0
+            class_emb = self.label_emb(torch.where(valid, classes, torch.zeros_like(classes)))
+            emb = emb + class_emb * valid[:, None].float()
+
+        h = x.permute(0, 3, 1, 2).to(self.dtype)
+        hs = []
+        for block in self.input_blocks:
+            h = block(h, emb, deterministic)
+            hs.append(h)
+        h = self.middle_block(h, emb, deterministic)
+        for block in self.output_blocks:
+            h = block(torch.cat([h, hs.pop()], dim=1), emb, deterministic)
+        h = self.out(h.float())
+        return h.permute(0, 2, 3, 1)
 
 
 def build_adm_unet(args: dict, dtype: Optional[torch.dtype] = None) -> AdmUnet2d:

@@ -42,6 +42,32 @@ bwd_f32_launches = 0
 width_launches = collections.Counter()
 
 
+def k1_counts() -> tuple:
+    """K1's counters as they stand: launches, f32 launches, launches by width."""
+    return launches, f32_launches, dict(width_launches)
+
+
+def k1_counts_since(before: tuple) -> tuple:
+    """K1's launches since ``before`` (:func:`k1_counts`), in the same form."""
+    n, n32, widths = before
+    return (launches - n, f32_launches - n32,
+            {w: k - widths.get(w, 0) for w, k in width_launches.items() if k != widths.get(w, 0)})
+
+
+def add_k1_counts(counts: tuple, sign: int = 1) -> None:
+    """Add ``sign`` times ``counts`` (:func:`k1_counts_since`) to K1's
+    counters: a CUDA graph's replay launches again what its capture counted
+    (``models/adm.py``), and the capture, which ran nothing, takes it back."""
+    global launches, f32_launches
+    n, n32, widths = counts
+    launches += sign * n
+    f32_launches += sign * n32
+    for w, k in widths.items():
+        width_launches[w] += sign * k
+        if not width_launches[w]:
+            del width_launches[w]
+
+
 def reference_attention(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
     """Plain packed attention with an f32 softmax (the JAX package's
     ``reference_attention``): logits of ``q*scale`` and ``k*scale``, softmax in

@@ -160,6 +160,11 @@ class RowTokenConv1d(adm.TokenConv1d):
         return y + self.bias.to(y.dtype)
 
 
+#: The layers :func:`shard_unet` puts in; a UNet that holds one runs its
+#: inference forward eagerly (``AdmUnet2d.graphable``).
+LAYERS = (ColumnConv2d, RowConv2d, ColumnLinear, ColumnTokenConv1d, RowTokenConv1d)
+
+
 @dataclasses.dataclass(frozen=True)
 class Shard:
     """How a parameter is split over the model group: along ``dim`` in
@@ -256,6 +261,9 @@ def shard_unet(model: nn.Module, groups) -> Dict[str, Shard]:
     specs: Dict[str, Shard] = {}
     if size == 1:
         return specs
+    for mod in model.modules():
+        if isinstance(mod, adm.AdmUnet2d):
+            mod.graphs.clear()  # its graphs read the layers replaced here
     for name, mod in list(model.named_modules()):
         prefix = f"{name}." if name else ""
         if isinstance(mod, adm.ResBlock):

@@ -138,3 +138,241 @@ def test_fresh_model_dtypes():
     assert seen == {"conv": torch.bfloat16, "skip": torch.bfloat16, "attn_norm": torch.bfloat16,
                     "embed": torch.float32, "head": torch.float32}
     assert y.dtype == torch.float32 and torch.equal(y, torch.zeros_like(y))
+
+
+# The graphed inference path (``AdmUnet2d.graphable``, ``InferenceGraphs``).
+# A CUDA graph cannot run here: the rule, the key, the bound and the cache's
+# invalidation are checked on the CPU with a stand-in for a CUDA input and for
+# the capture; the replay itself is checked on the card (chip_smoke.py
+# ``[unet graph]``).
+
+class _CudaInput:
+    """What ``graphable`` reads of a CUDA input."""
+
+    device = torch.device("cuda")
+
+
+class _FakeGraph:
+    def __init__(self, key):
+        self.key, self.replays = key, 0
+
+    def replay(self, *args):
+        self.replays += 1
+        return ("replay", self.key)
+
+
+def _tp_layer(model):
+    """``model`` with one convolution replaced by tensor parallelism's
+    column-parallel layer (whose forward, without a group, is the same)."""
+    from ivid_tpu_torch.parallel import tensor as tp
+
+    conv = model.input_blocks[1][0].in_layers[2]
+    col = tp.ColumnConv2d(conv.in_channels, conv.out_channels, 3, padding=1)
+    col.load_state_dict(conv.state_dict())
+    model.input_blocks[1][0].in_layers[2] = col
+    return model
+
+
+@pytest.mark.parametrize("tp_sharded", [False, True], ids=["replicated", "tp"])
+@pytest.mark.parametrize("deterministic", [True, False], ids=["det", "dropout"])
+@pytest.mark.parametrize("train_mode", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_graphable_rule(device, grad, train_mode, deterministic, tp_sharded):
+    model = adm.build_adm_unet(SMALL).train(train_mode)
+    if tp_sharded:
+        _tp_layer(model)
+    x = _CudaInput() if device == "cuda" else torch.zeros(1, 16, 16, 10)
+    with torch.set_grad_enabled(grad):
+        got = model.graphable(x, deterministic)
+    assert got == (device == "cuda" and not grad and not train_mode and deterministic
+                   and not tp_sharded)
+
+
+@pytest.mark.parametrize("observer", ["layer_hook", "layer_pre_hook", "global_hook",
+                                      "dispatch_mode"])
+def test_graphable_refuses_what_a_replay_would_bypass(observer):
+    """Hooks on the layers, global module hooks and dispatch modes see each
+    operation of an eager forward and nothing of a replay: such calls run
+    eagerly. Once the hook is gone and the graphs are dropped, a call is
+    graphable again."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model = adm.build_adm_unet(SMALL).eval()
+    x = _CudaInput()
+    with torch.no_grad():
+        assert model.graphable(x)
+        block = model.input_blocks[1][0]
+        if observer == "dispatch_mode":
+            with FlopCounterMode(display=False):
+                assert not model.graphable(x)
+            assert model.graphable(x)
+            return
+        handle = {
+            "layer_hook": lambda: block.register_forward_hook(lambda *a: None),
+            "layer_pre_hook": lambda: block.register_forward_pre_hook(lambda *a: None),
+            "global_hook": lambda: torch.nn.modules.module.register_module_forward_hook(
+                lambda *a: None),
+        }[observer]()
+        try:
+            assert not model.graphable(x)
+        finally:
+            handle.remove()
+        model.graphs.clear()
+        assert model.graphable(x)
+
+
+def test_shard_unet_drops_graphs_and_its_layers_stay_eager():
+    import types
+
+    from ivid_tpu_torch.parallel import tensor as tp
+
+    model = adm.build_adm_unet(SMALL).eval()
+    with torch.no_grad():
+        assert model.graphable(_CudaInput())
+        model.graphs.entries["k"] = _FakeGraph("k")
+        groups = types.SimpleNamespace(model_size=2, model_rank=0, model=None)
+        assert tp.shard_unet(model, groups)
+        assert model.graphs.entries == {}
+        assert not model.graphable(_CudaInput())
+
+
+def _key_inputs(change):
+    x = torch.zeros(2, 16, 16, 10)
+    t = torch.zeros(2, dtype=torch.long)
+    classes = torch.zeros(2, dtype=torch.long)
+    if change == "batch":
+        x, t, classes = x[:1], t[:1], classes[:1]
+    elif change == "dtype":
+        x = x.double()
+    elif change == "t_batch":
+        t = t[:1]
+    elif change == "no_classes":
+        classes = None
+    elif change == "values":
+        x, t, classes = x + 1, t + 5, classes + 3
+    return x, t, classes
+
+
+@pytest.mark.parametrize("change", ["batch", "dtype", "t_batch", "no_classes", "conv_tf32",
+                                    "matmul_tf32", "values"])
+def test_graph_key(change, monkeypatch):
+    """A graph's key: the input's shape and type, the timesteps' shape,
+    labels given or not, and the TF32 settings a capture bakes in; not the
+    values."""
+    base = adm.InferenceGraphs.key(*_key_inputs(None))
+    args = _key_inputs(change)
+    if change == "conv_tf32":
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
+                            not torch.backends.cudnn.allow_tf32)
+    elif change == "matmul_tf32":
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
+                            not torch.backends.cuda.matmul.allow_tf32)
+    key = adm.InferenceGraphs.key(*args)
+    monkeypatch.undo()
+    assert (key == base) == (change == "values")
+    assert adm.InferenceGraphs.key(*_key_inputs(None)) == base
+
+
+def test_graph_cache_bound(monkeypatch):
+    """Each new key captures once, up to the bound; later calls of a key
+    replay; a new key past the bound returns None (the caller runs it
+    eagerly) and captures nothing; ``clear`` forgets every graph."""
+    cache = adm.InferenceGraphs(limit=2)
+    captured = []
+
+    def capture(forward, x, t, classes):
+        key = cache.key(x, t, classes)
+        captured.append(key)
+        return forward(x, t, classes), _FakeGraph(key)
+
+    monkeypatch.setattr(cache, "_capture", capture)
+    forward = lambda x, t, classes: ("eager", x.shape[0])  # noqa: E731
+    t = lambda b: torch.zeros(b, dtype=torch.long)  # noqa: E731
+    assert cache.run(forward, torch.zeros(1, 4), t(1), None) == ("eager", 1)
+    assert cache.run(forward, torch.zeros(2, 4), t(2), None) == ("eager", 2)
+    assert len(captured) == 2 and len(cache.entries) == 2
+    assert cache.run(forward, torch.zeros(3, 4), t(3), None) is None
+    assert len(captured) == 2 and len(cache.entries) == 2
+    got = cache.run(forward, torch.ones(1, 4), t(1), None)
+    assert got == ("replay", captured[0]) and len(captured) == 2
+    assert cache.entries[captured[0]].replays == 1
+    cache.clear()
+    assert cache.entries == {} and cache.pool is None and cache.stream is None
+    assert cache.run(forward, torch.zeros(3, 4), t(3), None) == ("eager", 3)
+    assert adm.MAX_GRAPHS >= 2 and adm.InferenceGraphs().limit == adm.MAX_GRAPHS
+
+
+@pytest.mark.parametrize("change,dropped", [
+    ("to", True), ("float", True), ("load_assign", True), ("load_in_place", False),
+])
+def test_graph_cache_invalidation(change, dropped):
+    """What gives a parameter new storage drops the graphs; an in-place load
+    keeps them (their replays read the new values)."""
+    model = adm.build_adm_unet(SMALL).eval()
+    model.graphs.entries["k"] = _FakeGraph("k")
+    state = {k: v.clone() + 1 for k, v in model.state_dict().items()}
+    if change == "to":
+        model.to(torch.float64)
+    elif change == "float":
+        model.float()
+    elif change == "load_assign":
+        model.load_state_dict(state, assign=True)
+        assert all(v.data_ptr() == state[k].data_ptr() for k, v in model.state_dict().items())
+    elif change == "load_in_place":
+        ptrs = [p.data_ptr() for p in model.parameters()]
+        model.load_state_dict(state)
+        assert ptrs == [p.data_ptr() for p in model.parameters()]
+    assert (model.graphs.entries == {}) == dropped
+
+
+def test_k1_counter_helpers():
+    """A capture takes back the K1 launches it counted and each replay adds
+    them again (``attention.k1_counts``, ``k1_counts_since``,
+    ``add_k1_counts``); a width whose count falls to 0 leaves the table."""
+    saved = tattn.k1_counts()
+    try:
+        tattn.launches, tattn.f32_launches = 7, 2
+        tattn.width_launches.clear()
+        tattn.width_launches.update({768: 7})
+        before = tattn.k1_counts()
+        tattn.launches += 3
+        tattn.width_launches[768] += 1
+        tattn.width_launches[1536] += 2
+        counts = tattn.k1_counts_since(before)
+        assert counts == (3, 0, {768: 1, 1536: 2})
+        tattn.add_k1_counts(counts, -1)
+        assert tattn.k1_counts() == before
+        tattn.add_k1_counts(counts)
+        tattn.add_k1_counts(counts)
+        assert tattn.k1_counts() == (13, 2, {768: 9, 1536: 4})
+    finally:
+        tattn.launches, tattn.f32_launches = saved[:2]
+        tattn.width_launches.clear()
+        tattn.width_launches.update(saved[2])
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+@pytest.mark.parametrize("train_mode", [False, True], ids=["eval", "train"])
+def test_cpu_forward_unchanged(grad, train_mode):
+    """On the CPU every call is eager in every mode: the same output as the
+    JAX package's, bit-equal across modes, and no graph kept."""
+    cfg = SMALL
+    model, params = _jax_params(cfg, seed=1)
+    port = adm.build_adm_unet(cfg, dtype=torch.float32)
+    port.load_state_dict(flax_to_state_dict(params, **{k: cfg[k] for k in ARCH_KEYS}))
+    port.train(train_mode)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 16, 16, 10)).astype(np.float32)
+    t, classes = np.array([3, 500]), np.array([1, -1])
+    args = (torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(classes))
+    with torch.set_grad_enabled(grad):
+        got = port(*args).detach()
+    with torch.no_grad():
+        eager = port._forward(*args)
+    assert torch.equal(got, eager)
+    assert port.graphs.entries == {}
+    want = np.asarray(model.apply({"params": params}, jnp.asarray(x), jnp.asarray(t, jnp.int32),
+                                  jnp.asarray(classes, jnp.int32)))
+    rel = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+    assert rel < 1e-4, rel
