@@ -55,7 +55,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    graph against the eager forward on the four benchmark models (the
    single-category pair at batch 1, the flagship pair 16 wide), bit for
    bit with the same K1 launches, host ms per forward each way, a 3-step
-   DDIM chain each way, reloads and the calls that stay eager;
+   DDIM chain each way, reloads and the calls that stay eager; then ``[SR
+   27]``: K1 bf16 at the SR chunk's guided shape [54, 4096, 768] against its
+   plain version, and one 27-view chunk of ``sr.main`` (a forward of 54 at
+   256²) replayed as a CUDA graph against the eager forward;
 8. a small 3-view sampling chain (32² f32 UNets, K1 and K2 on its path) on
    the card against the same weights and noise on the CPU plain path; and a
    small SR chain (16² -> 32² SuperResCFG, 5 guided DDIM steps) the same
@@ -2781,6 +2784,88 @@ def phase_graft():
     return counts
 
 
+def phase_sr27(steps=3, block=6):
+    """``[SR 27]``: the SR cascade at ``sr.py``'s default chunk of 27 views.
+    K1 bf16 at the chunk's guided shape [54, 4096, 768] (4 heads) against
+    its plain version in f32 on the same bf16 inputs, computed ``block`` rows
+    at a time, and timed against its bound; then one 27-view ``3x9`` scene
+    of 128² views through ``ivid_tpu_torch.sr.main`` (the full-width SR
+    model, seeded weights, ``steps`` guided DDIM steps, ``--batchsize 27``:
+    one forward of 54 at 256² a step), whose forwards replay a CUDA graph,
+    against ``sr.upsample_views`` on the same views, weights and noise with
+    the model in train mode (the same forward, eager): bit for bit, with
+    the memory the graph reserves and the wall seconds of each."""
+    import numpy as np
+    import torch
+
+    from ivid_tpu_torch import sr
+    from ivid_tpu_torch.bench_attention import bound_ms
+    from ivid_tpu_torch.config import Config
+    from ivid_tpu_torch.diffusion.noise import TorchNoise
+    from ivid_tpu_torch.inference.scene_io import load_scene
+    from ivid_tpu_torch.ops import attention
+    from ivid_tpu_torch.ops import geometry as geom
+    from ivid_tpu_torch.sample import build_model
+
+    b, t, heads = 54, 4096, 4
+    scale = float(64 ** -0.25)
+    qkv = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (b, t, 3 * heads * 64)).astype(np.float32)).to("cuda", torch.bfloat16)
+    got = attention.packed_attention(qkv, heads, scale)
+    err_max, err_sum = 0.0, 0.0
+    for i in range(0, b, block):
+        want = attention.reference_attention(qkv[i:i + block].float(), heads, scale)
+        err = (got[i:i + block].float() - want).abs()
+        err_max, err_sum = max(err_max, err.max().item()), err_sum + err.sum().item()
+        del want, err
+    err_mean = err_sum / got.numel()
+    ms, host = timed(lambda: attention.packed_attention(qkv, heads, scale))
+    bound, bound_by = bound_ms(b, t, heads, torch.bfloat16)
+    log(f"[SR 27] K1 bf16 [{b},{t},{3 * heads * 64}] {heads} heads: max|err| {err_max:.3e} "
+        f"(<= {K1_BF16_MAX}) mean {err_mean:.3e} (<= {K1_BF16_MEAN}) against the plain version "
+        f"in f32 ({block} rows at a time); kernel {ms:.4f} ms device, {host:.4f} host, bound "
+        f"{bound:.4f} ms by {bound_by} ({100 * bound / ms:.1f}% of it)")
+    del qkv, got
+    torch.cuda.empty_cache()
+    if not (err_max <= K1_BF16_MAX and err_mean <= K1_BF16_MEAN):
+        raise RuntimeError("K1 disagrees with its plain version at [54, 4096, 768]")
+
+    root = write_scene(tempfile.mkdtemp(prefix="chip_smoke_sr27_"), 27, 128, seed=3)
+    mem0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graphed = sr.main(["--config_sr", SR_CFG, "--ckpt_sr", "random", "--scene_dir", root,
+                       "--steps", str(steps), "--guidance", "3", "--classes", "mod",
+                       "--batchsize", "27", "--device", "cuda"])["samples"][0]
+    graphed_s = time.perf_counter() - t0
+    pool_gib = (torch.cuda.max_memory_reserved() - mem0) / 2 ** 30
+    cfg = Config.load(SR_CFG)
+    fw = build_model(cfg, "random", 0, torch.device("cuda"))
+    fw.model.train()
+    meshes, colors = load_scene(os.path.join(root, "scenes", "scene_seed00000.npz"),
+                                device="cuda")
+    views = torch.stack([torch.cat([torch.from_numpy(c).to("cuda"),
+                                    geom.project_depth(m.depth, 0.6, 5.0)], dim=-1)
+                         for m, c in zip(meshes, colors)])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        eager = sr.upsample_views(
+            fw, views, classes=0, noise=lambda i: TorchNoise.seeded(i, "cuda"), steps=steps,
+            guidance=3.0, batchsize=27, image_size=256).cpu().numpy()
+    eager_s = time.perf_counter() - t0
+    equal = graphed.shape == eager.shape == (27, 256, 256, 4) and np.array_equal(graphed, eager)
+    diff = float(np.abs(graphed - eager).max()) if graphed.shape == eager.shape else float("nan")
+    log(f"[SR 27] sr.main, {os.path.basename(SR_CFG)}, a 27-view 3x9 scene of 128² views, "
+        f"--batchsize 27, {steps} guided steps (a forward of 54 at 256²): graphed vs eager "
+        f"bit-equal {equal} (largest |diff| {diff:.3e}), finite {bool(np.isfinite(graphed).all())}; "
+        f"reserved by the graphed run {pool_gib:.2f} GiB; wall s graphed {graphed_s:.2f} "
+        f"(the graph's warm-up and capture included), eager {eager_s:.2f}")
+    del fw
+    torch.cuda.empty_cache()
+    if not (equal and np.isfinite(graphed).all()):
+        raise RuntimeError("[SR 27] the graphed SR chunk differs from the eager one")
+
+
 def run_phase(fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, then a ``[time]`` line with its wall seconds
     and the script's running total, so that the script's budget can be read
@@ -2836,6 +2921,7 @@ def main():
     run_phase(phase_unet)
     run_phase(phase_flagship_unet)
     run_phase(phase_unet_graph)
+    run_phase(phase_sr27)
     sr_sites = run_phase(phase_sr_unet)
     run_phase(phase_chain)
     run_phase(phase_sr_chain)

@@ -17,6 +17,11 @@ lifted to a frustum-skirted mesh, as the sampling pipeline does).
 - The views of a scene go through in ``--batchsize`` chunks; the chunk of
   scene ``si`` that starts at view ``i`` draws its noise from seed
   ``1000 * si + i``.
+
+:func:`upsample_views` is the per-scene work (the chunks, the condition,
+the class and guidance, the guided DDIM), which ``main`` and the benchmark
+both call. Under torch.profiler it is the span ``sr.scene`` around one
+``sr.chunk`` span per chunk.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import re
 import time
 
 import torch
+
+from ivid_tpu_torch.utils.profiling import span
 
 
 def parse_args(argv=None):
@@ -60,6 +67,33 @@ def scene_class(name: str, num_classes, classes: str):
     return int(m.group(1)) % num_classes if m else None
 
 
+def upsample_views(fw, views, *, classes, noise, steps, guidance, batchsize, image_size):
+    """One scene's views upsampled by the SR framework ``fw``: ``views``
+    [V, s, s, 4] on the device in [0, 1] (colours and projected disparity)
+    become [V, S, S, 4] in [0, 1] at ``image_size`` S. The views go through
+    in chunks of ``batchsize``, each a guided DDIM of ``steps`` steps on the
+    condition ``views * 2 - 1``; ``noise(i)`` is the noise source of the
+    chunk that starts at view ``i``. With a class (``classes``, an int) every
+    view is conditioned on it under classifier-free guidance ``guidance``;
+    with None the chunks sample without guidance."""
+    from ivid_tpu_torch.diffusion import samplers
+
+    with span("sr.scene"):
+        out = []
+        for i in range(0, len(views), batchsize):
+            with span("sr.chunk"):
+                y = views[i:i + batchsize] * 2 - 1
+                cond, scale = {"y": y}, 0.0
+                if classes is not None:
+                    cond["classes"] = torch.full((y.shape[0],), classes, dtype=torch.long,
+                                                 device=y.device)
+                    scale = guidance
+                x = samplers.ddim_sample(fw, noise(i), num=y.shape[0], image_size=image_size,
+                                         cond=cond, guidance=scale, steps=steps)["samples"]
+                out.append(x * 0.5 + 0.5)
+        return torch.cat(out)
+
+
 def main(argv=None, noise=None) -> dict:
     """Run the CLI; returns ``output_dir``, the upsampled views of each scene
     (``samples``, numpy [V, S, S, 4] in [0, 1]), the device milliseconds per
@@ -68,7 +102,6 @@ def main(argv=None, noise=None) -> dict:
     a ``TorchNoise`` seeded with ``seed`` on the device)."""
     opt = parse_args(argv)
     from ivid_tpu_torch.config import Config
-    from ivid_tpu_torch.diffusion import samplers
     from ivid_tpu_torch.diffusion.noise import TorchNoise
     from ivid_tpu_torch.inference.pipeline import StageClock
     from ivid_tpu_torch.inference.scene_io import load_scene, save_scene
@@ -104,19 +137,11 @@ def main(argv=None, noise=None) -> dict:
                 torch.cat([torch.from_numpy(c).to(device),
                            geom.project_depth(m.depth, opt.near, opt.far)], dim=-1)
                 for m, c in zip(meshes, colors)])
-        out_views = []
-        for i in range(0, len(views), opt.batchsize):
-            y = views[i:i + opt.batchsize] * 2 - 1
-            cond, guidance = {"y": y}, 0.0
-            if cls is not None:
-                cond["classes"] = torch.full((y.shape[0],), cls, dtype=torch.long, device=device)
-                guidance = opt.guidance
-            with clock("sr"):
-                out = samplers.ddim_sample(fw, noise(1000 * si + i), num=y.shape[0],
-                                           image_size=s_hi, cond=cond, guidance=guidance,
-                                           steps=opt.steps)["samples"]
-            out_views.append(out * 0.5 + 0.5)
-        out_views = torch.cat(out_views)
+        with clock("sr"):
+            out_views = upsample_views(
+                fw, views, classes=cls, noise=lambda i: noise(1000 * si + i),
+                steps=opt.steps, guidance=opt.guidance, batchsize=opt.batchsize,
+                image_size=s_hi)
         host = out_views.cpu().numpy()
         all_samples.append(host)
         save_image(os.path.join(out_dir, "results_sr", f"{name}.png"), host[0, ..., :3])
