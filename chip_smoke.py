@@ -45,6 +45,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    ragged T=1000 and inputs scaled x8 (against the plain version in f64);
    two launches bit-equal; timed at the flagship shapes beside the plain
    version and SDPA in f32 (with SDPA's own error);
+6c. ``[group norm]``: the fused GroupNorm + scale-shift + SiLU kernel against
+   the same function in f32 at the SR concatenation [54, 256, 256, 256] bf16,
+   the flagship's [16, 256, 128, 128] f32 and ``b1``'s [1, 512, 8, 8] bf16,
+   each also offset by 1e3; timed beside its bytes bound, the composition and
+   ``F.group_norm`` + SiLU; then the SR UNet's graphed forward (87 launches,
+   eager and replayed) against the eager composition and the f32 forward;
 7. the full-width single-category UNet (random seeded weights, batch 2) on
    the card with K1 in f32 against the same weights on the CPU plain path;
    then the flagship 1000-class f32 UNet the same way (batch 2 with
@@ -231,6 +237,25 @@ TRAIN_LOSS_REL, TRAIN_PARAM_REL = 1e-3, 1e-5
 # cuDNN's other sum order.
 SR_BF16_REL = 5e-2
 
+# The GroupNorm kernel against GroupNorm, scale-shift and SiLU computed in f32
+# from the same input (torch's f32 statistics): the output's one rounding
+# (2^-8 relative to bf16, f32's own to f32), with room for the two ways of
+# summing the statistics; an input offset by 1e3 (std 1) loses up to ~1e-4 of
+# its mean in either sum (f32's ulp at 1e3 is 6e-5), and f32's
+# E[x²] - E[x]² would be off by ~6e-2 there.
+GN_REL = {"bfloat16": 2.0 ** -8, "float32": 1e-5}
+GN_ABS = {0.0: 1e-5, 1e3: 2e-3}
+# The graphed SR forward (the kernel at its 87 sites) against the eager
+# composition at batch 2 in the bf16 torso: both round the torso to bf16, so
+# their gap is SR_BF16_REL's; and the kernel, rounding once a site, lies no
+# further from the f32 forward than the composition does (with room for the
+# convolutions' own bf16 noise, which both share).
+GN_SR_GAP_RATIO = 1.25
+# The UNet's GroupNorm sites a forward, in every configuration here: the kernel
+# launches this many times a forward on each sampling path, and never in
+# training (autograd records there).
+GN_SITES = 87
+
 # The first UNet forward of a sampling run on weights read from a .msgpack file
 # vs the same forward on the .pt file of the same weights: the same bits in,
 # the same kernels; room for cuDNN picking another algorithm between calls.
@@ -289,7 +314,7 @@ PEAK_BYTES = 3.35e12
 
 
 KERNELS = ("packed_attention", "packed_attention_bwd", "dense_raster", "zbuffer_resolve",
-           "binned_resolve", "tile_resolve")
+           "binned_resolve", "tile_resolve", "group_norm")
 
 
 def log(msg):
@@ -1040,10 +1065,12 @@ def phase_flagship_pipeline(steps_uncond=50):
         f"stages (CUDA events) " + ", ".join(f"{k} {v:.1f} ms" for k, v in st.items()))
     log(f"[flagship pipeline] samples {samples.shape} finite {bool(np.isfinite(samples).all())}; "
         f"{len(images)} result png; launches {counts} (K1 f32 {5 * steps_uncond}: five sites "
-        f"per uncond step)")
+        f"per uncond step; GN {GN_SITES} a forward of 5 K1 sites: "
+        f"{GN_SITES * counts['K1'] // 5})")
     if not (np.isfinite(samples).all() and samples.shape == (2, 2, 128, 128, 4)
             and len(images) == 2 and counts["K1 f32"] == 5 * steps_uncond
             and counts["K1"] > counts["K1 f32"] and counts["K2"] >= 1
+            and counts["K1"] % 5 == 0 and counts["GN"] == GN_SITES * counts["K1"] // 5
             and counts["K4"] == counts["K3"] == counts["K5"] == counts["K6"] == 0):
         raise RuntimeError("the flagship pipeline run failed its checks")
     return counts, result["output_dir"]
@@ -1092,10 +1119,10 @@ def phase_flagship_train(steps=3):
         f"f32), SyntheticRGBD 128² with 1000 classes, batch {batch} (batch_split {split}), "
         f"{steps} AdamW steps: wall {wall:.2f} s; losses {np.round(losses, 5).tolist()}; ms per "
         f"step (CUDA events) {step_ms}; peak memory {peak:.2f} GiB; launches {counts} (K1 f32 and "
-        f"K4 f32 5 per step)")
+        f"K4 f32 5 per step, GN 0)")
     if not (np.isfinite(losses).all() and len(losses) == steps and finite
             and counts["K1 f32"] == counts["K1"] == 5 * steps
-            and counts["K4 f32"] == counts["K4"] == 5 * steps):
+            and counts["K4 f32"] == counts["K4"] == 5 * steps and counts["GN"] == 0):
         raise RuntimeError("the flagship training run failed its checks")
     del tr
     return counts, peak
@@ -1290,12 +1317,14 @@ def phase_sr(scene_dir, sites, steps=50):
     log(f"[SR] samples {[s.shape for s in samples]} finite "
         f"{all(np.isfinite(s).all() for s in samples)}; results_sr {pngs}; scenes_sr reloaded "
         f"(color, depth shapes) {reloaded}; launches {counts} (K1 {sites} sites x {steps} steps "
-        f"x {chunks} chunks = {sites * steps * chunks})")
+        f"x {chunks} chunks = {sites * steps * chunks}; GN {GN_SITES} a forward = "
+        f"{GN_SITES * steps * chunks})")
     if not (len(samples) == 2 and all(s.shape == (2, 256, 256, 4) and np.isfinite(s).all()
                                       for s in samples)
             and len(pngs) == 2
             and reloaded == [[((256, 256, 3), (256, 256, 1))] * 2] * 2
             and counts["K1"] == sites * steps * chunks and counts["K1 f32"] == 0
+            and counts["GN"] == GN_SITES * steps * chunks
             and all(counts[k] == 0 for k in ("K2", "K2 bins", "K3", "K4", "K5", "K6"))):
         raise RuntimeError("the SR run failed its checks")
     profile_sr_step()
@@ -1624,14 +1653,140 @@ def phase_sr_train(sites, steps=3):
         f"checkpoint's: {padded}), {steps} AdamW steps: wall {wall:.2f} s; losses "
         f"{np.round(losses, 5).tolist()}; ms per step (CUDA events) {step_ms}; peak memory "
         f"{peak:.2f} GiB; padded inputs trained {moved}; launches {counts} (K1 and K4 "
-        f"{per_step} per step: {sites} sites x {split} micro-batches)")
+        f"{per_step} per step: {sites} sites x {split} micro-batches; GN 0)")
     if not (padded and moved and np.isfinite(losses).all() and len(losses) == steps and finite
             and counts["K1"] == counts["K4"] == per_step * steps
-            and counts["K1 f32"] == counts["K4 f32"] == 0
+            and counts["K1 f32"] == counts["K4 f32"] == counts["GN"] == 0
             and all(counts[k] == 0 for k in ("K2", "K3", "K5", "K6"))):
         raise RuntimeError("the SR training run failed its checks")
     del tr
     return counts, peak
+
+
+def phase_group_norm():
+    """``[group norm]``: the GroupNorm kernel (``ops/group_norm.py``,
+    ``csrc/group_norm.cu``) against GroupNorm, scale-shift and SiLU computed
+    in f32 on the same input (``GN_REL``, ``GN_ABS``), at the SR chunk's
+    concatenated input [54, 256, 256, 256] bf16 with the scale-shift, the f32
+    flagship's [16, 256, 128, 128] and ``b1``'s [1, 512, 8, 8] bf16, each also
+    with its input offset by 1e3 (std 1); the composition's own distance
+    (``ops.group_norm.plain``, which rounds to bf16 between its steps) beside
+    it; device ms of the kernel, its bytes bound (input read once, output
+    written once), the composition and ``F.group_norm`` + SiLU on the input
+    as it is (``library_ms``). Then the full-width SR UNet at batch 2 (a
+    class and the null class): the graphed forward and the eager one with
+    the kernel (87 launches a forward each, eager and replayed) against the
+    eager composition (a grad-enabled call, which launches none), and each
+    against the f32 forward (TF32 off; the composition too)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ivid_tpu_torch.config import Config, build_backbone
+    from ivid_tpu_torch.models.adm import randomize_parameters
+    from ivid_tpu_torch.ops import group_norm as gn
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows, failures = [], []
+    for tag, shape, dtype, scale_shift in (
+            ("SR concat", (54, 256, 256, 256), bf16, True),
+            ("in128 uncond", (16, 256, 128, 128), f32, False),
+            ("b1 8x8", (1, 512, 8, 8), bf16, False)):
+        n, c = shape[:2]
+        w = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        emb = 0.3 * torch.randn((n, 2 * c), generator=gen, device="cuda") if scale_shift else None
+        for offset in (0.0, 1e3):
+            x = (torch.randn(shape, generator=gen, device="cuda") + offset).to(dtype)
+            with torch.no_grad():
+                got = gn.group_norm_act(x, w, b, 32, 1e-5, act=True, emb=emb)
+                want = F.group_norm(x.float(), 32, w, b, 1e-5)
+                if emb is not None:
+                    want = want * (1 + emb[:, :c, None, None]) + emb[:, c:, None, None]
+                want = F.silu(want)
+                err = ((got.float() - want).abs() - GN_REL[str(dtype)[6:]] * want.abs()).max()
+                plain = gn.plain(x, w, b, 32, 1e-5, act=True, emb=emb)
+                plain_err = (plain.float() - want).abs().max().item()
+                kernel_err = (got.float() - want).abs().max().item()
+                ok = err.item() <= GN_ABS[offset] and bool(torch.isfinite(got).all())
+                del got, want, plain
+            row = {"shape": list(shape), "dtype": str(dtype)[6:], "scale_shift": scale_shift,
+                   "offset": offset, "max_err": kernel_err, "plain_max_err": plain_err, "ok": ok}
+            if offset == 0.0:
+                def kernel():
+                    return gn.group_norm_act(x, w, b, 32, 1e-5, act=True, emb=emb)
+
+                def library():
+                    y = F.group_norm(x, 32, w.to(dtype), b.to(dtype), 1e-5)
+                    if emb is not None:
+                        y = y * (1 + emb[:, :c, None, None].to(dtype)) + emb[:, c:, None, None].to(dtype)
+                    return F.silu(y)
+
+                with torch.no_grad():
+                    row["ms"], row["host_ms"] = timed(kernel, match="gn_act_")
+                    row["plain_ms"] = timed(lambda: gn.plain(x, w, b, 32, 1e-5, act=True,
+                                                             emb=emb))[0]
+                    row["library_ms"] = timed(library)[0]
+                row["bound_ms"] = 1e3 * x.numel() * 2 * x.element_size() / PEAK_BYTES
+            del x
+            torch.cuda.empty_cache()
+            log(f"[group norm] {tag} {list(shape)} {row['dtype']}"
+                f"{' scale-shift' if scale_shift else ''}, input offset {offset:g}: max|err| "
+                f"{row['max_err']:.3e} against f32 (<= {GN_REL[row['dtype']]:.3g}|y| + "
+                f"{GN_ABS[offset]:g}; the composition {row['plain_max_err']:.3e}) ok {ok}"
+                + (f"; kernel {row['ms']:.4f} ms device ({row['host_ms']:.4f} host), bound "
+                   f"{row['bound_ms']:.4f} ms ({100 * row['bound_ms'] / row['ms']:.1f}%), "
+                   f"composition {row['plain_ms']:.4f}, library {row['library_ms']:.4f}"
+                   if "ms" in row else ""))
+            rows.append(row)
+            if not ok:
+                failures.append(f"{tag} offset {offset:g}")
+
+    # The whole SR forward: graphed and eager with the kernel, the eager
+    # composition, and the f32 forward.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.load(SR_CFG)
+    model = randomize_parameters(build_backbone(cfg), seed=0).to("cuda").eval()
+    x = torch.randn((2, 256, 256, 8), generator=gen, device="cuda")
+    t, classes = torch.tensor([500, 500], device="cuda"), torch.tensor([7, -1], device="cuda")
+    launches = {}
+    outs = {}
+    for mode in ("graphed", "replayed", "eager", "composition"):
+        before = gn.launches
+        model.train(mode == "eager")
+        with torch.set_grad_enabled(mode == "composition"):
+            outs[mode] = model(x, t, classes).detach()
+        launches[mode] = gn.launches - before
+    f32_model = build_backbone(cfg, dtype=f32)
+    f32_model.load_state_dict(model.state_dict())
+    ref = f32_model.to("cuda")(x, t, classes).detach()  # the composition, in f32
+    del f32_model, model
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    gap = {k: rel(v, ref) for k, v in outs.items()}
+    diff = rel(outs["replayed"], outs["composition"])
+    same = torch.equal(outs["replayed"], outs["eager"]) and torch.equal(outs["graphed"],
+                                                                       outs["eager"])
+    ok = (diff <= SR_BF16_REL and same and gap["replayed"] <= GN_SR_GAP_RATIO * gap["composition"]
+          and launches == {"graphed": 87, "replayed": 87, "eager": 87, "composition": 0})
+    log(f"[group norm] SR UNet 256², batch 2: kernel launches a forward {launches} (87, 87, 87, "
+        f"0); replayed vs eager (the kernel) bit-equal {same}; replayed vs the eager composition "
+        f"rel L2 {diff:.3e} (<= {SR_BF16_REL}); rel L2 to the f32 forward: kernel "
+        f"{gap['replayed']:.3e}, composition {gap['composition']:.3e} (kernel <= "
+        f"{GN_SR_GAP_RATIO} x composition)")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    del outs, ref
+    torch.cuda.empty_cache()
+    if not ok:
+        failures.append("SR forward")
+    if failures:
+        raise RuntimeError(f"[group norm] failed its checks: {failures}")
+    return {"name": "gn_act", "replaces": "none (XLA's GroupNorm in the JAX package)",
+            "shapes": rows, "launches_per_forward": launches}
 
 
 def phase_unet():
@@ -1812,8 +1967,10 @@ def phase_unet_graph():
 
 
 def reset_counts():
-    from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled, resolve_variants
+    from ivid_tpu_torch.ops import attention, group_norm, raster_dense, raster_tiled
+    from ivid_tpu_torch.ops import resolve_variants
 
+    group_norm.launches = 0
     attention.launches = attention.bwd_launches = 0
     attention.f32_launches = attention.bwd_f32_launches = 0
     attention.width_launches.clear()
@@ -1823,13 +1980,15 @@ def reset_counts():
 
 
 def read_counts():
-    from ivid_tpu_torch.ops import attention, raster_dense, raster_tiled, resolve_variants
+    from ivid_tpu_torch.ops import attention, group_norm, raster_dense, raster_tiled
+    from ivid_tpu_torch.ops import resolve_variants
 
     return {"K1": attention.launches, "K1 f32": attention.f32_launches,
             "K2": raster_dense.launches, "K2 bins": raster_dense.bin_launches,
             "K3": raster_tiled.launches, "K4": attention.bwd_launches,
             "K4 f32": attention.bwd_f32_launches,
-            "K5": resolve_variants.binned_launches, "K6": resolve_variants.tile_launches}
+            "K5": resolve_variants.binned_launches, "K6": resolve_variants.tile_launches,
+            "GN": group_norm.launches}
 
 
 def phase_chain(device="cuda"):
@@ -1934,10 +2093,12 @@ def phase_pipeline():
     log(f"[pipeline] samples {samples.shape} finite {bool(np.isfinite(samples).all())} "
         f"std {samples.std():.3f}; files: {len(scenes)} scene npz, {len(images)} result png; "
         f"launches: K1 {k1} (>= {5 * 1050}), K2 {k2} (>= 1, each with its bins: "
-        f"{counts['K2 bins']}); host ms waiting for the bins' length "
+        f"{counts['K2 bins']}); GN {counts['GN']} ({GN_SITES} a forward of 5 K1 sites: "
+        f"{GN_SITES * k1 // 5}); host ms waiting for the bins' length "
         f"{raster_dense.sync_s * 1e3:.4f} in all")
     if not (np.isfinite(samples).all() and samples.shape == (2, 2, 128, 128, 4)
             and len(scenes) == 2 and len(images) == 2 and k1 >= 5 * 1050 and k2 >= 1
+            and k1 % 5 == 0 and counts["GN"] == GN_SITES * k1 // 5
             and counts["K2 bins"] == k2 and counts["K3"] == counts["K4"] == counts["K5"] == counts["K6"] == 0):
         raise RuntimeError("pipeline run failed its checks")
     return counts
@@ -1983,7 +2144,8 @@ def ckpt_sampling(tmp, paths, pt_path, device="cuda"):
         f"{bool(np.isfinite(samples).all())}; launches {counts}; first UNet forward vs the .pt "
         f"weights: rel L2 {rel:.3e} (<= {CKPT_FORWARD_REL})")
     if not (np.isfinite(samples).all() and samples.shape == (2, 2, 128, 128, 4)
-            and counts["K1"] >= 5 * 60 and counts["K2"] >= 1 and rel <= CKPT_FORWARD_REL):
+            and counts["K1"] >= 5 * 60 and counts["K2"] >= 1 and rel <= CKPT_FORWARD_REL
+            and counts["K1"] % 5 == 0 and counts["GN"] == GN_SITES * counts["K1"] // 5):
         raise RuntimeError("[ckpt migrate] sampling from the .msgpack files failed its checks")
     return counts
 
@@ -2070,7 +2232,7 @@ def ckpt_resume(tmp, state, arch_args, device="cuda"):
         f"(model {n_params:,}); {flops}")
     if not (tr.step == 6 and len(losses) == 3 and all(math.isfinite(x) for x in losses)
             and len(traces) == 1 and total == n_params and counts["K1"] == 5 * 3
-            and counts["K4"] == 5 * 3 and counts["K3"] == 2 * 3):
+            and counts["K4"] == 5 * 3 and counts["K3"] == 2 * 3 and counts["GN"] == 0):
         raise RuntimeError("[ckpt migrate] the resumed, profiled run failed its checks")
     return counts
 
@@ -2184,7 +2346,7 @@ def phase_train_chain():
     if not (loss_rel <= TRAIN_LOSS_REL and param_rel <= TRAIN_PARAM_REL
             and np.isfinite(got_loss).all()
             and counts == {"K1": 9, "K1 f32": 9, "K2": 3, "K2 bins": 3, "K3": 6, "K4": 9,
-                           "K4 f32": 9, "K5": 0, "K6": 0}):
+                           "K4 f32": 9, "K5": 0, "K6": 0, "GN": 0}):
         raise RuntimeError("the training chain on the card disagrees with the CPU plain path")
     torch.backends.cudnn.allow_tf32 = True
 
@@ -2244,13 +2406,15 @@ def phase_train():
         f"{np.round(losses, 5).tolist()}; ms per step (CUDA events) {step_ms}, of which data "
         f"and warp conditioning {warp_ms}; peak memory {peak:.2f} GiB")
     log(f"[train] launches {counts}, per step {per_step} (K1 5, K4 5, K3 2, K2 >= 1 and its "
-        f"bins as often); host ms per step waiting for the bins' length {sync_ms / steps:.4f}; "
+        f"bins as often, GN 0); host ms per step waiting for the bins' length "
+        f"{sync_ms / steps:.4f}; "
         f"{changed} of {len(now)} tensors changed since step 3 (not: {unchanged}); finite {finite}; "
         f"reloaded step {again_step} equal {reloaded}")
     if not (np.isfinite(losses).all() and len(losses) == steps and finite and changed > 0
             and reloaded and counts["K1"] == 5 * steps and counts["K4"] == 5 * steps
             and counts["K3"] == 2 * steps and counts["K2"] >= steps
-            and counts["K2 bins"] == counts["K2"] and counts["K5"] == counts["K6"] == 0):
+            and counts["K2 bins"] == counts["K2"] and counts["K5"] == counts["K6"] == 0
+            and counts["GN"] == 0):
         raise RuntimeError("training run failed its checks")
     return counts, tr
 
@@ -2439,7 +2603,7 @@ def phase_train_files(root, steps=4, device="cuda"):
             f"losses {np.round(losses, 5).tolist()}; launches per step "
             f"{ {k: v / n for k, v in counts.items() if v} }")
         ok = (n > 0 and np.isfinite(losses).all() and tr.ddp is not None and tr.world == 1
-              and counts["K1"] == 5 * n and counts["K4"] == 5 * n)
+              and counts["K1"] == 5 * n and counts["K4"] == 5 * n and counts["GN"] == 0)
         if warp_host:
             ok &= counts["K2"] == counts["K3"] == 0
         else:
@@ -2621,7 +2785,8 @@ def phase_tp_train(steps=3):
             f"{np.round(r['losses'], 6).tolist()}; ms per step (CUDA events) "
             f"{np.round(r['step_ms'], 2).tolist()}; peak memory {r['peak_gib']:.2f} GiB; K1 "
             f"{r['counts']['K1']}, K4 {r['counts']['K4']}, K2 {r['counts']['K2']}, K3 "
-            f"{r['counts']['K3']}; K1 launches by qkv width {r['k1_widths']}; "
+            f"{r['counts']['K3']}, GN {r['counts']['GN']}; K1 launches by qkv width "
+            f"{r['k1_widths']}; "
             f"{len(r['shards'])} parameters sharded; wall {r['wall_s']:.1f} s")
     default_precision()
     torch.cuda.reset_peak_memory_stats()
@@ -2637,7 +2802,8 @@ def phase_tp_train(steps=3):
     log(f"[tp train] world size 1: losses {np.round(losses, 6).tolist()}; ms per step (CUDA "
         f"events) {[round(m['step'], 2) for m in rec.stage_ms()]}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K1 {counts['K1']}, K4 "
-        f"{counts['K4']}; K1 launches by qkv width {widths}; wall {wall:.1f} s (the two ranks' "
+        f"{counts['K4']}, GN {counts['GN']}; K1 launches by qkv width {widths}; wall "
+        f"{wall:.1f} s (the two ranks' "
         f"launcher {launch_wall:.1f} s, with their start)")
     del one
     tp_dir, one_dir = os.path.join(tmp, "tp", name), os.path.join(tmp, "one", name)
@@ -2691,6 +2857,7 @@ def phase_tp_train(steps=3):
           and reports[0]["shards"] == reports[1]["shards"] and len(specs) > 0
           and slices == 2 * len(specs) and differ == len(specs)
           and counts["K1"] == counts["K4"] == 5 * steps and widths == {1536: 5 * steps}
+          and counts["GN"] == 0 and all(r["counts"]["GN"] == 0 for r in reports)
           and all(r["counts"]["K1"] == r["counts"]["K4"] == 5 * steps
                   and r["k1_widths"] == {"768": 5 * steps} and r["counts"]["K3"] == 2 * steps
                   and r["counts"]["K2"] >= steps for r in reports))
@@ -2720,7 +2887,7 @@ def phase_dp_sample():
             f"{2 * r['rank'] + 1}): wall {r['wall_s']:.2f} s; stages (CUDA events) "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in r["stage_ms"].items())
             + f"; launches K1 {r['counts']['K1']} (f32 {r['counts']['K1 f32']}), K2 "
-            f"{r['counts']['K2']}; peak memory {r['peak_gib']:.2f} GiB")
+            f"{r['counts']['K2']}, GN {r['counts']['GN']}; peak memory {r['peak_gib']:.2f} GiB")
     reset_counts()
     t0 = time.perf_counter()
     with seeded_orbit():
@@ -2741,14 +2908,17 @@ def phase_dp_sample():
     same_files = names(os.path.join(tmp, "dp")) == names(os.path.join(tmp, "one"))
     log(f"[dp sample] world size 1: wall {wall:.2f} s (the two ranks' launcher "
         f"{launch_wall:.2f} s, with their start); launches K1 {counts['K1']} (f32 "
-        f"{counts['K1 f32']}), K2 {counts['K2']}")
+        f"{counts['K1 f32']}), K2 {counts['K2']}, GN {counts['GN']} ({GN_SITES} a forward of 5 "
+        f"K1 sites, on each rank and at world size 1)")
     log(f"[dp sample] 2 ranks vs 1, per scene: first view max rel L2 {first:.3e} (bound "
         f"{DP_F32_REL}), second view {second:.3e} (bound {SR_BF16_REL}); condition-mask pixels "
         f"differing {flips:.5f} (bound {CHAIN_MASK_FRAC}); the same scene files {same_files}")
     ok = (got.shape == want.shape == (4, 2, 128, 128, 4) and np.isfinite(got).all()
           and first <= DP_F32_REL and second <= SR_BF16_REL and flips <= CHAIN_MASK_FRAC
           and same_files
+          and counts["K1"] % 5 == 0 and counts["GN"] == GN_SITES * counts["K1"] // 5
           and all(r["counts"]["K1"] == counts["K1"] and r["counts"]["K1 f32"] == counts["K1 f32"]
+                  and r["counts"]["GN"] == counts["GN"]
                   and r["counts"]["K2"] == counts["K2"] >= 1 for r in reports))
     if not ok:
         raise RuntimeError("[dp sample] failed its checks")
@@ -2778,6 +2948,7 @@ def phase_graft():
         f"{ms:.1f} ms with its first launches; launches {counts}; dryrun_multichip(2, cuda:0) "
         f"in {dry:.1f} s: {line}")
     if not (finite and tuple(out.shape) == (2, 128, 128, 4) and counts["K1 f32"] == 5
+            and counts["GN"] == GN_SITES
             and line.startswith("dryrun_multichip: mesh={'data': 1, 'model': 2} loss=")
             and line.endswith(" OK")):
         raise RuntimeError("[graft] failed its checks")
@@ -2833,11 +3004,13 @@ def phase_sr27(steps=3, block=6):
     root = write_scene(tempfile.mkdtemp(prefix="chip_smoke_sr27_"), 27, 128, seed=3)
     mem0 = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     t0 = time.perf_counter()
     graphed = sr.main(["--config_sr", SR_CFG, "--ckpt_sr", "random", "--scene_dir", root,
                        "--steps", str(steps), "--guidance", "3", "--classes", "mod",
                        "--batchsize", "27", "--device", "cuda"])["samples"][0]
     graphed_s = time.perf_counter() - t0
+    gn_launches = {"graphed": read_counts()["GN"]}
     pool_gib = (torch.cuda.max_memory_reserved() - mem0) / 2 ** 30
     cfg = Config.load(SR_CFG)
     fw = build_model(cfg, "random", 0, torch.device("cuda"))
@@ -2847,23 +3020,30 @@ def phase_sr27(steps=3, block=6):
     views = torch.stack([torch.cat([torch.from_numpy(c).to("cuda"),
                                     geom.project_depth(m.depth, 0.6, 5.0)], dim=-1)
                          for m, c in zip(meshes, colors)])
+    reset_counts()
     t0 = time.perf_counter()
     with torch.no_grad():
         eager = sr.upsample_views(
             fw, views, classes=0, noise=lambda i: TorchNoise.seeded(i, "cuda"), steps=steps,
             guidance=3.0, batchsize=27, image_size=256).cpu().numpy()
     eager_s = time.perf_counter() - t0
+    gn_launches["eager"] = read_counts()["GN"]
     equal = graphed.shape == eager.shape == (27, 256, 256, 4) and np.array_equal(graphed, eager)
     diff = float(np.abs(graphed - eager).max()) if graphed.shape == eager.shape else float("nan")
     log(f"[SR 27] sr.main, {os.path.basename(SR_CFG)}, a 27-view 3x9 scene of 128² views, "
         f"--batchsize 27, {steps} guided steps (a forward of 54 at 256²): graphed vs eager "
         f"bit-equal {equal} (largest |diff| {diff:.3e}), finite {bool(np.isfinite(graphed).all())}; "
         f"reserved by the graphed run {pool_gib:.2f} GiB; wall s graphed {graphed_s:.2f} "
-        f"(the graph's warm-up and capture included), eager {eager_s:.2f}")
+        f"(the graph's warm-up and capture included), eager {eager_s:.2f}; GN launches "
+        f"{gn_launches} ({GN_SITES} a forward x {steps} steps = {GN_SITES * steps} each)")
     del fw
     torch.cuda.empty_cache()
     if not (equal and np.isfinite(graphed).all()):
         raise RuntimeError("[SR 27] the graphed SR chunk differs from the eager one")
+    if gn_launches != {"graphed": GN_SITES * steps, "eager": GN_SITES * steps}:
+        raise RuntimeError(f"[SR 27] the GroupNorm kernel launched {gn_launches} times, not "
+                           f"{GN_SITES} a forward")
+    return gn_launches
 
 
 def run_phase(fn, *args, **kwargs):
@@ -2918,10 +3098,11 @@ def main():
         run_phase(phase_attention_backward, 2, 4096, 4, seed=7, time_f32=False),
         run_phase(phase_attention_backward, 2, 1024, 6, seed=8, time_f32=False)]
     k1_f32, k4_f32 = run_phase(phase_f32_attention)
+    gn_entry = run_phase(phase_group_norm)
     run_phase(phase_unet)
     run_phase(phase_flagship_unet)
     run_phase(phase_unet_graph)
-    run_phase(phase_sr27)
+    sr27_gn = run_phase(phase_sr27)
     sr_sites = run_phase(phase_sr_unet)
     run_phase(phase_chain)
     run_phase(phase_sr_chain)
@@ -3003,12 +3184,23 @@ def main():
         entry["launches"] = benches[key]
         entry["launches_by_path"] = {"sampling": sampling[key], "training": training[key],
                                      "benches": benches[key]}
+    # The GroupNorm kernel: its launches on each main path (87 a forward on
+    # the sampling paths, none in training).
+    gn_entry["launches"] = sr_sampling["GN"]
+    gn_entry["launches_by_path"] = {
+        "sr sampling": sr_sampling["GN"], "sr 27 graphed": sr27_gn["graphed"],
+        "sr 27 eager": sr27_gn["eager"], "sampling": sampling["GN"],
+        "flagship sampling": flagship_sampling["GN"], "dp sample (rank 0)": dp_sampling["GN"],
+        "msgpack sampling": ckpt_sampling_counts["GN"], "graft entry": graft["GN"],
+        "training": training["GN"], "file training": file_training["GN"],
+        "flagship training": flagship_training["GN"], "sr training": sr_training["GN"],
+        "tp train (rank 0)": tp_training["GN"], "msgpack resume": ckpt_resume_counts["GN"]}
     from ivid_tpu_torch import timing
 
     log(f"[timing] device-time readings taken by queued CUDA events instead of "
         f"torch.profiler: {timing.fallbacks}")
     log(json.dumps({"kernels": [k1, k1_train, k1_f32, k2, skirt8, skirt1, k3, k4, k4_f32, k5,
-                                k6]}))
+                                k6, gn_entry]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,17 @@ reference checkpoint loads as it is.
 Precision: every parameter is stored in float32 (the master weights an
 optimizer updates). With ``use_fp16`` the torso computes in bfloat16: its
 activations are bf16, and the convolutions and attention projections cast
-their weights to bf16 per call. GroupNorm runs in float32 with eps 1e-5, the
-timestep/class embedding MLP in float32, and the output head in float32. The
-public call takes and returns NHWC tensors; internally activations are NCHW.
+their weights to bf16 per call. GroupNorm's statistics are float32 with eps
+1e-5, the timestep/class embedding MLP runs in float32, and the output head
+in float32. An inference forward on the card normalises through one kernel
+per site (:mod:`ivid_tpu_torch.ops.group_norm`): GroupNorm with its
+scale-shift (read from the embedding's f32 output) and its SiLU, computed in
+float32 from the bf16 input and rounded once, to bf16 in the torso and to
+f32 at the head. Training, and any call autograd records, keeps the
+composition: the input cast to f32, GroupNorm, the result cast back, the
+scale-shift in the torso's type, then the SiLU. The public call takes and
+returns NHWC tensors; internally activations are NCHW, and in inference on
+the card NCHW in memory too (the kernel reads each group as one slab).
 
 Dropout applies only where a caller asks for it (``deterministic=False``),
 as in the JAX package, whose callers never do: the module's
@@ -47,6 +55,7 @@ import torch.nn.functional as F
 import torch.utils.hooks
 
 from ivid_tpu_torch.ops import attention as attn_ops
+from ivid_tpu_torch.ops import group_norm as gn_ops
 from ivid_tpu_torch.utils.profiling import span
 
 #: CUDA graphs one UNet keeps, one per call signature: a sampler calls each
@@ -77,14 +86,19 @@ class TimestepEmbedding(nn.Module):
 
 
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm computed in float32 whatever the activation type."""
+    """GroupNorm with float32 statistics whatever the activation type, and
+    the SiLU and scale-shift that follow it at the UNet's sites:
+    ``norm(x, act, emb, dtype)`` is :func:`gn_ops.group_norm_act` with this
+    module's groups, affine and eps (the kernel on the card in inference,
+    else the composition)."""
 
     def __init__(self, num_groups: int, num_channels: int):
         super().__init__(num_groups, num_channels, eps=1e-5)
 
-    def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
-                            self.eps).to(x.dtype)
+    def forward(self, x, act: bool = False, emb: Optional[torch.Tensor] = None,
+                dtype: Optional[torch.dtype] = None):
+        return gn_ops.group_norm_act(x, self.weight, self.bias, self.num_groups, self.eps,
+                                     act=act, emb=emb, dtype=dtype)
 
 
 class Conv2d(nn.Conv2d):
@@ -138,19 +152,18 @@ class ResBlock(nn.Module):
 
     def forward(self, x, emb, deterministic: bool = True):
         with span("unet.resblock"):
-            h = self.in_layers[1](self.in_layers[0](x))
+            h = self.in_layers[0](x, act=True)  # with in_layers[1], the SiLU
             if self.up:
                 h, x = _up(h), _up(x)
             elif self.down:
                 h, x = _down(h), _down(x)
             h = self.in_layers[2](h)
-            emb_out = self.emb_layers(emb).to(h.dtype)[..., None, None]
-            norm, act, drop, conv = self.out_layers
+            emb_out = self.emb_layers(emb)
+            norm, _, drop, conv = self.out_layers  # out_layers[1], the SiLU, fused in norm
             if self.use_scale_shift_norm:
-                scale, shift = emb_out.chunk(2, dim=1)
-                h = act(norm(h) * (1 + scale) + shift)
+                h = norm(h, act=True, emb=emb_out)
             else:
-                h = act(norm(h + emb_out))
+                h = norm(h + emb_out.to(h.dtype)[..., None, None], act=True)
             if not deterministic and drop.p > 0:
                 # torch's global generator draws the mask (the JAX package's
                 # ``dropout`` rng stream has no counterpart here).
@@ -224,10 +237,12 @@ class EmbedSequential(nn.Sequential):
 
 class _Graph:
     """One captured forward: the graph, its static inputs and output, and
-    the K1 launches its capture counted (:func:`attn_ops.k1_counts_since`)."""
+    the K1 launches (:func:`attn_ops.k1_counts_since`) and the GroupNorm
+    kernel's launches its capture counted."""
 
-    def __init__(self, graph, inputs, out, k1_counts):
+    def __init__(self, graph, inputs, out, k1_counts, norm_launches):
         self.graph, self.inputs, self.out, self.k1_counts = graph, inputs, out, k1_counts
+        self.norm_launches = norm_launches
 
     def replay(self, *args) -> torch.Tensor:
         with span("unet.graph_replay"), torch.cuda.device(self.out.device):
@@ -236,6 +251,7 @@ class _Graph:
                     static.copy_(a)
             self.graph.replay()
             attn_ops.add_k1_counts(self.k1_counts)
+            gn_ops.launches += self.norm_launches
             return self.out.clone()
 
 
@@ -250,8 +266,9 @@ class InferenceGraphs:
     forward with the inputs copied to static buffers. Every later call
     copies its inputs into those buffers, replays, and returns a clone of
     the static output, which the next call overwrites. The same kernels run
-    in the same order on the same types as eagerly. K1's launch counters
-    (``ops/attention.py``) count what ran on the device: the capture takes
+    in the same order on the same types as eagerly. The launch counters of
+    K1 (``ops/attention.py``) and of the GroupNorm kernel
+    (``ops/group_norm.py``) count what ran on the device: the capture takes
     back what it counted, each replay adds it again.
 
     The graphs of one cache share a memory pool and the side stream: every
@@ -315,16 +332,18 @@ class InferenceGraphs:
                 out = forward(x, t, classes)
             caller.wait_stream(self.stream)
             inputs = [None if a is None else a.clone() for a in (x, t, classes)]
-            before = attn_ops.k1_counts()
+            before, norm_before = attn_ops.k1_counts(), gn_ops.launches
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
                                   capture_error_mode="thread_local"):
                 static_out = forward(*inputs)
         counts = attn_ops.k1_counts_since(before)
         attn_ops.add_k1_counts(counts, -1)
+        norm_launches = gn_ops.launches - norm_before
+        gn_ops.launches = norm_before
         if self.pool is None:
             self.pool = graph.pool()
-        return out, _Graph(graph, inputs, static_out, counts)
+        return out, _Graph(graph, inputs, static_out, counts, norm_launches)
 
 
 class AdmUnet2d(nn.Module):
@@ -469,7 +488,18 @@ class AdmUnet2d(nn.Module):
             class_emb = self.label_emb(torch.where(valid, classes, torch.zeros_like(classes)))
             emb = emb + class_emb * valid[:, None].float()
 
-        h = x.permute(0, 3, 1, 2).to(self.dtype)
+        # Wherever a norm site may launch the GroupNorm kernel, the torso is
+        # NCHW in memory, the one layout the kernel takes: the permuted NHWC
+        # input would carry its channels-last strides into the
+        # convolutions' outputs and the residual stream. Every site's input
+        # comes out of the input layer, so where autograd records it (its
+        # input or its parameters, as in training) every site records and
+        # keeps the composition, and the torso keeps that layout, as on the
+        # CPU.
+        h = x.permute(0, 3, 1, 2)
+        nchw = gn_ops.kernel_applies(h, *self.input_blocks[0].parameters())
+        h = h.to(self.dtype, memory_format=torch.contiguous_format if nchw
+                 else torch.preserve_format)
         hs = []
         for block in self.input_blocks:
             h = block(h, emb, deterministic)
@@ -477,7 +507,8 @@ class AdmUnet2d(nn.Module):
         h = self.middle_block(h, emb, deterministic)
         for block in self.output_blocks:
             h = block(torch.cat([h, hs.pop()], dim=1), emb, deterministic)
-        h = self.out(h.float())
+        h = self.out[0](h, act=True, dtype=torch.float32)  # with out[1], the SiLU
+        h = self.out[2](h)
         return h.permute(0, 2, 3, 1)
 
 
