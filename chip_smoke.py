@@ -3,9 +3,9 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
 
-1. device: the card's name and power limit (nvidia-smi), then the six
-   kernels built from ``ivid_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc
-   per source, all at once;
+1. device: the card's name and power limit (nvidia-smi), then every
+   source of ``ivid_tpu_torch/csrc`` (``cuda_build.SOURCES``) built with
+   nvcc for sm_90a, one nvcc per source, all at once;
 2. K1 (packed attention) against its plain version at [2, 1024, 768] (the
    sampling shape) and [8, 1024, 768] (the training forward's), 4 heads, in
    bf16 and f32, with the log-sum-exp it stores for training held to its
@@ -135,7 +135,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 The ranks of 16 and 17 run this script as ``chip_smoke.py --rank-worker
 KIND OUT -- ARGV``: ``train.main`` or ``sample.main`` with the launch
-counters read around it, each rank's counts and times written to
+counter read around it, each rank's counts and times written to
 ``OUT/rank{R}.json``. Two ranks on one card over gloo carry every
 activation reduction through the host: their times say that the paths run,
 not how they scale.
@@ -313,8 +313,9 @@ DP_F32_REL = 5e-3
 PEAK_BYTES = 3.35e12
 
 
-KERNELS = ("packed_attention", "packed_attention_bwd", "dense_raster", "zbuffer_resolve",
-           "binned_resolve", "tile_resolve", "group_norm")
+# The launch counts the phases print and check (``cuda_build.launches``
+# keys; K1's launches by qkv width are read by ``k1_widths``).
+COUNTED = ("K1", "K1 f32", "K2", "K2 bins", "K3", "K4", "K4 f32", "K5", "K6", "GN")
 
 
 def log(msg):
@@ -353,8 +354,8 @@ def phase_device():
     smi = timing.card_line()
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    cuda_build.build(KERNELS)
-    for name in KERNELS:
+    cuda_build.build(cuda_build.SOURCES)
+    for name in cuda_build.SOURCES:
         cuda_build.load(name)
     log(f"[device] built {sorted(cuda_build.build_seconds)} with nvcc for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s "
@@ -764,7 +765,7 @@ def fmt_ms(ms_list):
 
 def phase_benches():
     """``bench_resolve.main`` and ``bench_micro.main`` at their defaults, with
-    the launch counters read around them."""
+    the launch counter read around them."""
     from ivid_tpu_torch import bench_micro, bench_resolve
 
     reset_counts()
@@ -1005,7 +1006,6 @@ def phase_flagship_unet():
 
     from ivid_tpu_torch.config import Config, build_backbone
     from ivid_tpu_torch.models.adm import randomize_parameters
-    from ivid_tpu_torch.ops import attention
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1022,9 +1022,10 @@ def phase_flagship_unet():
     with torch.no_grad():
         want = cpu_model(x, t, classes)
         cpu_s = time.perf_counter() - t0
-        before = attention.launches, attention.f32_launches
+        before = read_counts()
         got = gpu_model(x.cuda(), t.cuda(), classes.cuda()).cpu()
-    sites, sites32 = attention.launches - before[0], attention.f32_launches - before[1]
+    counts = counts_since(before)
+    sites, sites32 = counts["K1"], counts["K1 f32"]
     rel = ((got - want).norm() / want.norm()).item()
     n_params = sum(p.numel() for p in cpu_model.parameters())
     log(f"[flagship unet] {os.path.basename(FLAGSHIP_UNCOND)} ({n_params} parameters), f32, "
@@ -1184,7 +1185,6 @@ def phase_sr_unet():
 
     from ivid_tpu_torch.config import Config, build_backbone
     from ivid_tpu_torch.models.adm import randomize_parameters
-    from ivid_tpu_torch.ops import attention
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1207,12 +1207,13 @@ def phase_sr_unet():
         gpu_model = build_backbone(cfg, dtype=dtype)
         gpu_model.load_state_dict(cpu_model.state_dict())
         gpu_model.to("cuda").eval()
-        before = attention.launches, attention.f32_launches
+        before = read_counts()
         with torch.no_grad():
             got, sites, blocks = kernel_sites(
                 gpu_model, lambda: gpu_model(x.cuda(), t.cuda(), classes.cuda()).cpu())
+        counts = counts_since(before)
         res[name] = (((got - want).norm() / want.norm()).item(), bool(torch.isfinite(got).all()),
-                     attention.launches - before[0], attention.f32_launches - before[1])
+                     counts["K1"], counts["K1 f32"])
         del gpu_model
     n_params = sum(p.numel() for p in cpu_model.parameters())
     (rel32, fin32, k1_32, f32_32), (rel16, fin16, k1_16, f32_16) = res["f32"], res["bf16 torso"]
@@ -1270,7 +1271,7 @@ def phase_sr_chain(device="cuda"):
 
     before = read_counts()
     got, sites = run(torch.device(device))
-    k1 = read_counts()["K1"] - before["K1"]
+    k1 = counts_since(before)["K1"]
     want, _ = run(torch.device("cpu"))
     rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
     log(f"[SR chain] SuperResCFG 16² -> 32², f32, batch 2, classes {classes.tolist()}, 5 guided "
@@ -1359,7 +1360,7 @@ def write_scene(root, views, s, seed=0):
 
 
 def render_run(tag, scene_dir, frames, traj="swing", ssaa=5, device="cuda"):
-    """``render.main`` over ``scene_dir`` with the launch counters read
+    """``render.main`` over ``scene_dir`` with the launch counter read
     around it; checks the frames and the files and that K2 ran once (with
     its bins) per frame on the card. Returns the result and the counts."""
     import numpy as np
@@ -1753,11 +1754,11 @@ def phase_group_norm():
     launches = {}
     outs = {}
     for mode in ("graphed", "replayed", "eager", "composition"):
-        before = gn.launches
+        before = read_counts()
         model.train(mode == "eager")
         with torch.set_grad_enabled(mode == "composition"):
             outs[mode] = model(x, t, classes).detach()
-        launches[mode] = gn.launches - before
+        launches[mode] = counts_since(before)["GN"]
     f32_model = build_backbone(cfg, dtype=f32)
     f32_model.load_state_dict(model.state_dict())
     ref = f32_model.to("cuda")(x, t, classes).detach()  # the composition, in f32
@@ -1795,7 +1796,6 @@ def phase_unet():
 
     from ivid_tpu_torch.config import Config, build_backbone
     from ivid_tpu_torch.models.adm import randomize_parameters
-    from ivid_tpu_torch.ops import attention
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1808,11 +1808,11 @@ def phase_unet():
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((2, 128, 128, 4)).astype(np.float32))
     t = torch.tensor([999, 10])
-    before = attention.launches
+    before = read_counts()
     with torch.no_grad():
         want = cpu_model(x, t)
         got = gpu_model(x.cuda(), t.cuda()).cpu()
-    sites = attention.launches - before
+    sites = counts_since(before)["K1"]
     rel = ((got - want).norm() / want.norm()).item()
     log(f"[unet] full-width single-category model, batch 2, f32: card (K1 at {sites} "
         f"attention sites) vs CPU plain path: rel L2 {rel:.3e} (<= {UNET_REL}), "
@@ -1843,16 +1843,15 @@ def phase_unet_graph():
     from ivid_tpu_torch.diffusion import samplers
     from ivid_tpu_torch.diffusion.noise import KeyedNoise
     from ivid_tpu_torch.models.adm import randomize_parameters
-    from ivid_tpu_torch.ops import attention
     from ivid_tpu_torch.parallel import tensor as tp
 
     def call(model, args, graphed):
-        """The output and K1's launches of one no-grad call."""
+        """The output and the kernel launches of one no-grad call."""
         model.train(not graphed)
-        before = attention.k1_counts()
+        before = read_counts()
         with torch.no_grad():
             out = model(*args)
-        return out, attention.k1_counts_since(before)
+        return out, counts_since(before)
 
     def compare(got, want):
         return torch.equal(got, want), (got - want).abs().max().item()
@@ -1900,8 +1899,8 @@ def phase_unet_graph():
         log(f"[unet graph] {tag}: {tuple(calls[0][0].shape)}, classes "
             f"{calls[0][2] is not None}: replayed vs eager bit-equal {[e for e, _ in same]} "
             f"(largest |diff| {max(d for _, d in same):.3e}); K1 launches per call eager "
-            f"{[e[1][0] for e in eager]}, graphed {[g[1][0] for g in graphed]} (equal "
-            f"{counts_equal}); graphs {len(model.graphs.entries)}, memory reserved for them "
+            f"{[e[1]['K1'] for e in eager]}, graphed {[g[1]['K1'] for g in graphed]} (every "
+            f"kernel's count equal {counts_equal}); graphs {len(model.graphs.entries)}, memory reserved for them "
             f"{pool_gib:.3f} GiB; the first call (warm-up and capture) {first_ms:.1f} ms; host "
             f"ms per forward eager {eager_ms:.2f}, replayed {graph_ms:.2f}; grad-enabled call "
             f"eager {grad_eager}")
@@ -1919,15 +1918,15 @@ def phase_unet_graph():
         outs, counts = [], []
         for graphed in (False, True):
             model.train(not graphed)
-            before = attention.k1_counts()
+            before = read_counts()
             outs.append(samplers.ddim_sample(
                 fw, KeyedNoise.seeded(3, "cuda"), num=batch, image_size=128,
                 cond=cond_fn() if cond_fn else None, guidance=3.0 if cond_fn else 0.0,
                 steps=3)["samples"])
-            counts.append(attention.k1_counts_since(before))
+            counts.append(counts_since(before))
         equal, diff = compare(outs[1], outs[0])
         log(f"[unet graph] {tag} ddim_sample 3 steps, batch {batch}: graphed vs eager "
-            f"bit-equal {equal} (largest |diff| {diff:.3e}); K1 launches eager {counts[0]}, "
+            f"bit-equal {equal} (largest |diff| {diff:.3e}); launches eager {counts[0]}, "
             f"graphed {counts[1]}")
         if not (equal and counts[0] == counts[1]):
             failures.append(f"{tag} ddim")
@@ -1967,28 +1966,32 @@ def phase_unet_graph():
 
 
 def reset_counts():
-    from ivid_tpu_torch.ops import attention, group_norm, raster_dense, raster_tiled
-    from ivid_tpu_torch.ops import resolve_variants
+    from ivid_tpu_torch import cuda_build
+    from ivid_tpu_torch.ops import raster_dense
 
-    group_norm.launches = 0
-    attention.launches = attention.bwd_launches = 0
-    attention.f32_launches = attention.bwd_f32_launches = 0
-    attention.width_launches.clear()
-    raster_dense.launches = raster_dense.bin_launches = raster_tiled.launches = 0
+    cuda_build.launches.clear()
     raster_dense.sync_s = 0.0
-    resolve_variants.binned_launches = resolve_variants.tile_launches = 0
 
 
 def read_counts():
-    from ivid_tpu_torch.ops import attention, group_norm, raster_dense, raster_tiled
-    from ivid_tpu_torch.ops import resolve_variants
+    """The kernel launches counted so far, by key of COUNTED (0 for a kernel
+    that has not launched)."""
+    from ivid_tpu_torch import cuda_build
 
-    return {"K1": attention.launches, "K1 f32": attention.f32_launches,
-            "K2": raster_dense.launches, "K2 bins": raster_dense.bin_launches,
-            "K3": raster_tiled.launches, "K4": attention.bwd_launches,
-            "K4 f32": attention.bwd_f32_launches,
-            "K5": resolve_variants.binned_launches, "K6": resolve_variants.tile_launches,
-            "GN": group_norm.launches}
+    return {k: cuda_build.launches[k] for k in COUNTED}
+
+
+def counts_since(before):
+    """The launches since ``before`` (a :func:`read_counts`), by key."""
+    return {k: v - before[k] for k, v in read_counts().items()}
+
+
+def k1_widths():
+    """K1's launches counted so far by the width 3C of the qkv it read."""
+    from ivid_tpu_torch import cuda_build
+
+    return {key[1]: n for key, n in cuda_build.launches.items()
+            if isinstance(key, tuple) and key[0] == "K1"}
 
 
 def phase_chain(device="cuda"):
@@ -2003,7 +2006,6 @@ def phase_chain(device="cuda"):
     from ivid_tpu_torch.inference.pipeline import ScenePipeline
     from ivid_tpu_torch.inference.viewsets import build_viewset, canonical_view
     from ivid_tpu_torch.models import adm
-    from ivid_tpu_torch.ops import attention, raster_dense
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2045,9 +2047,10 @@ def phase_chain(device="cuda"):
                                               noise=noise)
         return samples.cpu().numpy(), (conds["depth"] > -1).cpu().numpy()
 
-    before = attention.launches, raster_dense.launches
+    before = read_counts()
     got, got_mask = run(torch.device(device))
-    k1, k2 = attention.launches - before[0], raster_dense.launches - before[1]
+    counts = counts_since(before)
+    k1, k2 = counts["K1"], counts["K2"]
     want, want_mask = run(torch.device("cpu"))
     rel = max(float(np.linalg.norm(got[:, v] - want[:, v]) / np.linalg.norm(want[:, v]))
               for v in range(want.shape[1]))
@@ -2066,7 +2069,7 @@ def phase_pipeline():
     import numpy as np
 
     from ivid_tpu_torch import sample
-    from ivid_tpu_torch.ops import attention, raster_dense
+    from ivid_tpu_torch.ops import raster_dense
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     argv = [
@@ -2335,7 +2338,7 @@ def phase_train_chain():
     torch.backends.cuda.matmul.allow_tf32 = False
     before = read_counts()
     got_loss, got = train_chain_run(torch.device("cuda"))
-    counts = {k: v - before[k] for k, v in read_counts().items()}
+    counts = counts_since(before)
     want_loss, want = train_chain_run(torch.device("cpu"))
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got_loss, want_loss))
     param_rel = ((got - want).norm() / want.norm()).item()
@@ -2456,7 +2459,7 @@ def phase_train_profile(tr, timed=10, profiled=2):
                 tr.run_step()
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t0) * 1e3 / profiled
-        launches = {k: v - before[k] for k, v in read_counts().items()}
+        launches = counts_since(before)
         if not (launches["K1"] == 5 * profiled and launches["K4"] == 5 * profiled):
             raise RuntimeError(f"the profiled training steps miss a kernel: {launches}")
         rows = timing.device_rows(prof, profiled)
@@ -2691,7 +2694,7 @@ def seeded_orbit(seed=0):
 
 def rank_worker(kind, out, argv):
     """One rank of ``[tp train]`` (``train.main(argv)``) or ``[dp sample]``
-    (``sample.main(argv)``): the launch counters set to 0 before and read
+    (``sample.main(argv)``): the launch counter set to 0 before and read
     after, the counts, times and peak memory (this process's, on card 0)
     written to ``out/rank{RANK}.json``."""
     import zlib
@@ -2699,7 +2702,6 @@ def rank_worker(kind, out, argv):
     import numpy as np
     import torch
 
-    from ivid_tpu_torch.ops import attention
 
     rank = int(os.environ["RANK"])
     reset_counts()
@@ -2732,7 +2734,7 @@ def rank_worker(kind, out, argv):
     else:
         raise ValueError(f"no rank worker {kind!r}")
     report.update(wall_s=time.perf_counter() - t0, counts=read_counts(),
-                  k1_widths={str(k): v for k, v in attention.width_launches.items()},
+                  k1_widths={str(k): v for k, v in k1_widths().items()},
                   peak_gib=torch.cuda.max_memory_allocated(0) / 2 ** 30)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
@@ -2751,7 +2753,6 @@ def phase_tp_train(steps=3):
     from ivid_tpu_torch import train
     from ivid_tpu_torch.config import Config, build_backbone
     from ivid_tpu_torch.models.adm import randomize_parameters
-    from ivid_tpu_torch.ops import attention
     from ivid_tpu_torch.parallel import tensor as tp
     from ivid_tpu_torch.training import checkpoint as ckpt_io
     from ivid_tpu_torch.training.trainer import StepRecord
@@ -2797,7 +2798,7 @@ def phase_tp_train(steps=3):
                       "cuda"], record=rec)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts, widths = read_counts(), dict(attention.width_launches)
+    counts, widths = read_counts(), k1_widths()
     losses = [float(x) for x in rec.losses]
     log(f"[tp train] world size 1: losses {np.round(losses, 6).tolist()}; ms per step (CUDA "
         f"events) {[round(m['step'], 2) for m in rec.stage_ms()]}; peak memory "

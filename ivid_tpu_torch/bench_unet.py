@@ -44,7 +44,7 @@ import tempfile
 
 import torch
 
-from ivid_tpu_torch import timing
+from ivid_tpu_torch import cuda_build, timing
 from ivid_tpu_torch.bench_attention import sdpa_forward
 from ivid_tpu_torch.ops import attention
 
@@ -97,9 +97,9 @@ def _turns(step, reps, model):
     try:
         for name in ORDER:
             _use(VERSIONS[name], model)
-            before = attention.launches, attention.bwd_launches
+            before = cuda_build.launches.copy()
             ms.setdefault(name, []).append(timing.host_ms(step, reps=reps, warmup=1))
-            launches[name] = [attention.launches - before[0], attention.bwd_launches - before[1]]
+            launches[name] = [cuda_build.launches[k] - before[k] for k in ("K1", "K4")]
             if name not in prof:
                 prof[name] = _profile(step)
     finally:

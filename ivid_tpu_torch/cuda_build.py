@@ -7,10 +7,15 @@ source, the headers beside it and the flags, and is built at first use
 (:func:`build` starts one nvcc per source at once): importing a module never
 touches nvcc or the GPU. The attention kernels link the driver library
 (``-lcuda``) for ``cuTensorMapEncodeTiled``, which describes their TMA copies.
+
+Every kernel wrapper of ``ops/`` launches through :func:`launch`, which
+counts each launch in :data:`launches`.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +25,11 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: The package's CUDA sources, ``csrc/<name>.cu``, by name.
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,6 +41,16 @@ _libs: dict = {}
 _fns: dict = {}
 build_seconds: dict = {}
 build_log: dict = {}
+
+#: Kernel launches since the counter was last cleared, by key: ``K1`` to
+#: ``K6`` and ``GN`` (each kernel's launches; ``K2 bins`` counts the calls of
+#: ``ops/raster_dense.bin_tiles``, two C calls each), ``K1 f32`` and ``K4 f32``
+#: (the attention kernels' f32 paths) and ``("K1", 3C)`` (K1's launches by the
+#: width of the qkv it read; under tensor parallelism, this rank's heads).
+#: :func:`launch` adds to it; a CUDA graph's capture takes back what it
+#: counted and each replay adds that again (``models/adm.py``). A key whose
+#: count falls to 0 leaves it.
+launches = collections.Counter()
 
 
 def nvcc() -> str:
@@ -109,3 +128,26 @@ def function(name: str, symbol: str, argtypes, src_dir: Path = CSRC):
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return _fns[key]
+
+
+def _on_device(device: torch.device):
+    """No context switch when ``device`` is already the current one (the
+    usual case: a switch costs host time on every launch)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def launch(name: str, symbol: str, argtypes, device: torch.device, *args, count) -> None:
+    """Call the entry point ``symbol`` of library ``name`` (:func:`function`)
+    with ``args`` and the current stream of ``device``, entering ``device``
+    only when it is not the current one. Raises on a CUDA error code and
+    counts nothing; otherwise adds one to each key of ``count`` in
+    :data:`launches` (``count`` is empty where a launch takes two calls and
+    the second counts it)."""
+    fn = function(name, symbol, argtypes)
+    with _on_device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {rc}")
+    launches.update(count)

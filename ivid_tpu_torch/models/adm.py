@@ -54,6 +54,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.hooks
 
+from ivid_tpu_torch import cuda_build
 from ivid_tpu_torch.ops import attention as attn_ops
 from ivid_tpu_torch.ops import group_norm as gn_ops
 from ivid_tpu_torch.utils.profiling import span
@@ -237,12 +238,10 @@ class EmbedSequential(nn.Sequential):
 
 class _Graph:
     """One captured forward: the graph, its static inputs and output, and
-    the K1 launches (:func:`attn_ops.k1_counts_since`) and the GroupNorm
-    kernel's launches its capture counted."""
+    the kernel launches its capture counted (``cuda_build.launches`` keys)."""
 
-    def __init__(self, graph, inputs, out, k1_counts, norm_launches):
-        self.graph, self.inputs, self.out, self.k1_counts = graph, inputs, out, k1_counts
-        self.norm_launches = norm_launches
+    def __init__(self, graph, inputs, out, launches):
+        self.graph, self.inputs, self.out, self.launches = graph, inputs, out, launches
 
     def replay(self, *args) -> torch.Tensor:
         with span("unet.graph_replay"), torch.cuda.device(self.out.device):
@@ -250,8 +249,7 @@ class _Graph:
                 if static is not None:
                     static.copy_(a)
             self.graph.replay()
-            attn_ops.add_k1_counts(self.k1_counts)
-            gn_ops.launches += self.norm_launches
+            cuda_build.launches.update(self.launches)
             return self.out.clone()
 
 
@@ -266,10 +264,9 @@ class InferenceGraphs:
     forward with the inputs copied to static buffers. Every later call
     copies its inputs into those buffers, replays, and returns a clone of
     the static output, which the next call overwrites. The same kernels run
-    in the same order on the same types as eagerly. The launch counters of
-    K1 (``ops/attention.py``) and of the GroupNorm kernel
-    (``ops/group_norm.py``) count what ran on the device: the capture takes
-    back what it counted, each replay adds it again.
+    in the same order on the same types as eagerly. The launch counter
+    (``cuda_build.launches``) counts what ran on the device: the capture
+    takes back what it counted, each replay adds it again.
 
     The graphs of one cache share a memory pool and the side stream: every
     graph's static output lives as long as the graph, so a capture reuses
@@ -332,18 +329,16 @@ class InferenceGraphs:
                 out = forward(x, t, classes)
             caller.wait_stream(self.stream)
             inputs = [None if a is None else a.clone() for a in (x, t, classes)]
-            before, norm_before = attn_ops.k1_counts(), gn_ops.launches
+            before = cuda_build.launches.copy()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
                                   capture_error_mode="thread_local"):
                 static_out = forward(*inputs)
-        counts = attn_ops.k1_counts_since(before)
-        attn_ops.add_k1_counts(counts, -1)
-        norm_launches = gn_ops.launches - norm_before
-        gn_ops.launches = norm_before
+        launches = cuda_build.launches - before
+        cuda_build.launches -= launches
         if self.pool is None:
             self.pool = graph.pool()
-        return out, _Graph(graph, inputs, static_out, counts, norm_launches)
+        return out, _Graph(graph, inputs, static_out, launches)
 
 
 class AdmUnet2d(nn.Module):

@@ -19,53 +19,16 @@ are the plain versions of K1's log-sum-exp and of K4 in its formula form.
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import ctypes
 import math
 
 import torch
 
+from ivid_tpu_torch import cuda_build
 from ivid_tpu_torch.utils.profiling import span
 
 HEAD_DIM = 64
 _LOG2E = math.log2(math.e)
-
-# Kernel launches since the counters were last reset (chip_smoke.py reads
-# them): K1 forward launches and K4 backward launches, each of either path,
-# and of those the f32 path's (its own kernels); and K1's launches by the
-# width 3C of the qkv it read (under tensor parallelism, this rank's heads).
-launches = 0
-bwd_launches = 0
-f32_launches = 0
-bwd_f32_launches = 0
-width_launches = collections.Counter()
-
-
-def k1_counts() -> tuple:
-    """K1's counters as they stand: launches, f32 launches, launches by width."""
-    return launches, f32_launches, dict(width_launches)
-
-
-def k1_counts_since(before: tuple) -> tuple:
-    """K1's launches since ``before`` (:func:`k1_counts`), in the same form."""
-    n, n32, widths = before
-    return (launches - n, f32_launches - n32,
-            {w: k - widths.get(w, 0) for w, k in width_launches.items() if k != widths.get(w, 0)})
-
-
-def add_k1_counts(counts: tuple, sign: int = 1) -> None:
-    """Add ``sign`` times ``counts`` (:func:`k1_counts_since`) to K1's
-    counters: a CUDA graph's replay launches again what its capture counted
-    (``models/adm.py``), and the capture, which ran nothing, takes it back."""
-    global launches, f32_launches
-    n, n32, widths = counts
-    launches += sign * n
-    f32_launches += sign * n32
-    for w, k in widths.items():
-        width_launches[w] += sign * k
-        if not width_launches[w]:
-            del width_launches[w]
 
 
 def reference_attention(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
@@ -131,37 +94,20 @@ _BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + 
     ctypes.c_int, ctypes.c_void_p]
 
 
-def _on_device(device: torch.device):
-    """No context switch when ``device`` is already the current one (the
-    usual case: a switch costs host time on every launch)."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def _launch(qkv: torch.Tensor, heads: int, scale: float, with_lse: bool = False):
     """K1: ``out [B, T, C]`` and, with ``with_lse``, the natural log-sum-exp
     ``lse [B, H, T]`` (f32) of each row's logits ``scale² q·k``."""
-    from ivid_tpu_torch import cuda_build
-
-    global launches, f32_launches
     _check(qkv, heads)
     b, t, c3 = qkv.shape
-    fn = cuda_build.function("packed_attention", "packed_attention_fwd_launch", _FWD_ARGS)
     out = torch.empty((b, t, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, heads, t), dtype=torch.float32, device=qkv.device)
            if with_lse else None)
     qscale = float(scale) * float(scale) * _LOG2E
-    with _on_device(qkv.device):
-        rc = fn(
-            qkv.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(), b, t, heads,
-            qscale, int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"packed_attention kernel launch failed: CUDA error {rc}")
-    launches += 1
-    f32_launches += qkv.dtype == torch.float32
-    width_launches[c3] += 1
+    f32 = ("K1 f32",) if qkv.dtype == torch.float32 else ()
+    cuda_build.launch(
+        "packed_attention", "packed_attention_fwd_launch", _FWD_ARGS, qkv.device,
+        qkv.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(), b, t, heads,
+        qscale, int(qkv.dtype == torch.bfloat16), count=("K1", ("K1", c3), *f32))
     return out, lse
 
 
@@ -169,9 +115,6 @@ def _launch_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, lse: t
                 heads: int, scale: float) -> torch.Tensor:
     """K4: ``dqkv [B, T, 3C]`` in the input type from the forward's ``qkv``,
     ``out`` and ``lse`` and the output gradient ``dout``."""
-    from ivid_tpu_torch import cuda_build
-
-    global bwd_launches, bwd_f32_launches
     _check(qkv, heads)
     b, t, c3 = qkv.shape
     if out.shape != (b, t, c3 // 3) or dout.shape != out.shape or lse.shape != (b, heads, t):
@@ -184,22 +127,17 @@ def _launch_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, lse: t
         raise ValueError("packed attention backward needs 16-byte aligned out and dout")
     if any(x.device != qkv.device for x in (out, dout, lse)):
         raise ValueError("packed attention backward: tensors on different devices")
-    fn = cuda_build.function("packed_attention_bwd", "packed_attention_bwd_launch", _BWD_ARGS)
     dqkv = torch.empty_like(qkv)
     # Per-row (lse·log2 e, D) pairs, T padded to the kernels' 64-row tiles.
     tpad = -(-t // 64) * 64
     scratch = torch.empty((b, heads, tpad, 2), dtype=torch.float32, device=qkv.device)
     s2 = float(scale) * float(scale)
-    with _on_device(qkv.device):
-        rc = fn(
-            qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-            dqkv.data_ptr(), b, t, heads, s2 * _LOG2E, s2,
-            int(qkv.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"packed attention backward launch failed: CUDA error {rc}")
-    bwd_launches += 1
-    bwd_f32_launches += qkv.dtype == torch.float32
+    f32 = ("K4 f32",) if qkv.dtype == torch.float32 else ()
+    cuda_build.launch(
+        "packed_attention_bwd", "packed_attention_bwd_launch", _BWD_ARGS, qkv.device,
+        qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+        dqkv.data_ptr(), b, t, heads, s2 * _LOG2E, s2, int(qkv.dtype == torch.bfloat16),
+        count=("K4", *f32))
     return dqkv
 
 

@@ -26,9 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-#: Kernel launches since the counter was last reset (``chip_smoke.py`` and
-#: the UNet's CUDA graphs read and add to it, as they do K1's).
-launches = 0
+from ivid_tpu_torch import cuda_build
 
 NORM, SILU, SCALE_SHIFT_SILU = 0, 1, 2
 #: The kernel's supported (input, output) types.
@@ -105,24 +103,15 @@ def _check(x, weight, bias, groups, act, emb, dtype):
 
 
 def _launch(x, weight, bias, groups, eps, act, emb, dtype) -> torch.Tensor:
-    from ivid_tpu_torch import cuda_build
-    from ivid_tpu_torch.ops.attention import _on_device
-
-    global launches
     _check(x, weight, bias, groups, act, emb, dtype)
-    fn = cuda_build.function("group_norm", "gn_act_launch", _ARGS)
     n, c, h, w = x.shape
     y = torch.empty(x.shape, dtype=dtype, device=x.device)
     mode = SCALE_SHIFT_SILU if emb is not None else SILU if act else NORM
-    with _on_device(x.device):
-        rc = fn(x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                0 if emb is None else emb.data_ptr(), 0 if emb is None else emb.stride(0),
-                n, c, groups, h * w, int(x.dtype == torch.bfloat16),
-                int(dtype == torch.bfloat16), mode, float(eps),
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"group_norm_act kernel launch failed: CUDA error {rc}")
-    launches += 1
+    cuda_build.launch("group_norm", "gn_act_launch", _ARGS, x.device,
+                      x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                      0 if emb is None else emb.data_ptr(), 0 if emb is None else emb.stride(0),
+                      n, c, groups, h * w, int(x.dtype == torch.bfloat16),
+                      int(dtype == torch.bfloat16), mode, float(eps), count=("GN",))
     return y
 
 

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ivid_tpu_torch import cuda_build
 from ivid_tpu_torch.ops.geometry import triangulate_face_type
 from ivid_tpu_torch.ops.raster import gather_corners
 from ivid_tpu_torch.utils.profiling import span
@@ -46,10 +47,6 @@ TILE = 16  # K2's screen tiles are TILE x TILE pixels
 _U32 = 2.0 ** -24  # f32 unit roundoff
 _U64 = 2.0 ** -53  # f64 unit roundoff
 
-# Launches since the counters were last reset (chip_smoke.py reads them):
-# K2's raster kernel, and its binning (a count and a fill kernel per call).
-launches = 0
-bin_launches = 0
 # Host seconds :func:`bin_tiles` has waited for the card to give the length
 # of the tiles' lists (one wait per raster call), since last reset.
 sync_s = 0.0
@@ -501,6 +498,14 @@ def raster_tiles_reference(geom, pay, offsets, ids, r: int, A: int) -> DenseRast
     return finish(torch.cat([zbuf[:, None], acc, cnt[:, None]], dim=1), r, A)
 
 
+# C signatures (csrc/dense_raster.cu): pointers and the stream as c_void_p,
+# counts and sizes as c_int.
+_BINS_ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int]
+              + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_TILES_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+               + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(msg)
@@ -518,9 +523,7 @@ def bin_tiles(cols: Cols, r: int, capacity: Optional[int] = None):
     ids past it, so a shorter one cuts lists short, and the caller checks
     the returned offsets with :func:`check_capacity` once its timing is
     done. Raises unless the columns are CUDA tensors."""
-    from ivid_tpu_torch import cuda_build
-
-    global bin_launches, sync_s
+    global sync_s
     valid = cols.valid
     dev = valid.device
     B, T = valid.shape
@@ -535,33 +538,26 @@ def bin_tiles(cols: Cols, r: int, capacity: Optional[int] = None):
     _check(valid.dtype == torch.bool and valid.is_contiguous(), "valid must be contiguous bool")
     _check(capacity is None or 0 <= capacity < 2 ** 31, f"capacity {capacity} out of range")
     nt = -(-r // TILE)
-    fn = cuda_build.function("dense_raster", "dense_raster_bins",
-                             [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-                             + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                             + [ctypes.c_void_p])
     ptrs = (ctypes.c_void_p * len(columns))(*[c.data_ptr() for c in columns])
     geom = torch.empty((B, T, 18), dtype=torch.float32, device=dev)
     pay = torch.empty((B, T, npay), dtype=torch.float32, device=dev)
     counts = torch.zeros(B * nt * nt, dtype=torch.int32, device=dev)
     big = torch.empty(B * T, dtype=torch.int32, device=dev)  # ids of the triangles
     nbig = torch.zeros(1, dtype=torch.int32, device=dev)  # with many candidate tiles
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(ptrs, npay, valid.data_ptr(), geom.data_ptr(), pay.data_ptr(), counts.data_ptr(),
-                None, None, 0, big.data_ptr(), nbig.data_ptr(), B, T, r, 0, stream)
-        _raise_on(rc, "bin count")
-        offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0, dtype=torch.int32)])
-        if capacity is None:
-            t0 = time.perf_counter()
-            capacity = int(offsets[-1])
-            sync_s += time.perf_counter() - t0
-        ids = torch.empty(capacity, dtype=torch.int32, device=dev)
-        counts.zero_()
-        rc = fn(ptrs, npay, valid.data_ptr(), geom.data_ptr(), pay.data_ptr(), counts.data_ptr(),
-                offsets.data_ptr(), ids.data_ptr(), capacity, big.data_ptr(), nbig.data_ptr(),
-                B, T, r, 1, stream)
-        _raise_on(rc, "bin fill")
-    bin_launches += 1
+    cuda_build.launch("dense_raster", "dense_raster_bins", _BINS_ARGS, dev, ptrs, npay,
+                      valid.data_ptr(), geom.data_ptr(), pay.data_ptr(), counts.data_ptr(),
+                      None, None, 0, big.data_ptr(), nbig.data_ptr(), B, T, r, 0, count=())
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0, dtype=torch.int32)])
+    if capacity is None:
+        t0 = time.perf_counter()
+        capacity = int(offsets[-1])
+        sync_s += time.perf_counter() - t0
+    ids = torch.empty(capacity, dtype=torch.int32, device=dev)
+    counts.zero_()
+    cuda_build.launch("dense_raster", "dense_raster_bins", _BINS_ARGS, dev, ptrs, npay,
+                      valid.data_ptr(), geom.data_ptr(), pay.data_ptr(), counts.data_ptr(),
+                      offsets.data_ptr(), ids.data_ptr(), capacity, big.data_ptr(),
+                      nbig.data_ptr(), B, T, r, 1, count=("K2 bins",))
     return geom, pay, offsets, ids
 
 
@@ -576,19 +572,11 @@ def check_capacity(offsets: torch.Tensor, capacity: int) -> None:
                            f"{listed - capacity} were dropped")
 
 
-def _raise_on(rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"dense raster {what} kernel launch failed: CUDA error {rc}")
-
-
 def raster_tiles(geom, pay, offsets, ids, r: int, A: int) -> DenseRaster:
     """K2's raster over the bins on the card (its plain version is
     :func:`raster_tiles_reference`). Returns a DenseRaster over B·r² flat
     pixels; buffer b owns ids [b·r², (b+1)·r²). Raises unless the inputs are
     CUDA tensors."""
-    from ivid_tpu_torch import cuda_build
-
-    global launches
     dev = geom.device
     _check(dev.type == "cuda", f"raster_tiles runs on CUDA tensors only, got {dev}")
     _check(1 <= A <= 11, f"the dense raster kernel takes 1 to 11 attributes, got {A}")
@@ -604,20 +592,15 @@ def raster_tiles(geom, pay, offsets, ids, r: int, A: int) -> DenseRaster:
     _check(all(x.is_contiguous() and x.device == dev for x in (pay, offsets, ids))
            and geom.is_contiguous() and geom.data_ptr() % 8 == 0,
            "the raster's inputs must be contiguous on one device (geom 8-byte aligned)")
-    fn = cuda_build.function("dense_raster", "dense_raster_tiles",
-                             [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-                             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     npix = B * r * r
     attrs = torch.empty((npix, A), dtype=torch.float32, device=dev)
     depth = torch.empty((npix,), dtype=torch.float32, device=dev)
     front = torch.empty((npix,), dtype=torch.bool, device=dev)
     covered = torch.empty((npix,), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(geom.data_ptr(), pay.data_ptr(), offsets.data_ptr(), ids.data_ptr(), ids.numel(),
-                attrs.data_ptr(), depth.data_ptr(), front.data_ptr(), covered.data_ptr(),
-                B, T, r, A, torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "raster")
-    launches += 1
+    cuda_build.launch("dense_raster", "dense_raster_tiles", _TILES_ARGS, dev,
+                      geom.data_ptr(), pay.data_ptr(), offsets.data_ptr(), ids.data_ptr(),
+                      ids.numel(), attrs.data_ptr(), depth.data_ptr(), front.data_ptr(),
+                      covered.data_ptr(), B, T, r, A, count=("K2",))
     return DenseRaster(attrs=attrs, depth=depth, front=front, covered=covered)
 
 

@@ -20,13 +20,15 @@ from typing import Sequence
 
 import torch
 
+from ivid_tpu_torch import cuda_build
 from ivid_tpu_torch.ops.raster import FragmentBatch, _concat
 from ivid_tpu_torch.utils.profiling import span
 
 FAR = 9.0  # depth of invalid fragments; valid window z lies in [0, 1]
 
-# Kernel launches since the counter was last reset (chip_smoke.py reads it).
-launches = 0
+# C signature (csrc/zbuffer_resolve.cu): six pointers, the pixel count,
+# two ints, the stream.
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def prepare(fragments: Sequence[FragmentBatch], payloads: Sequence[torch.Tensor],
@@ -54,9 +56,6 @@ def prepare(fragments: Sequence[FragmentBatch], payloads: Sequence[torch.Tensor]
 def launch(starts, z, payload, k: int, render_size: int, num_buffers: int = 1):
     """K3 on prepared inputs: ``(payload [npix, k], depth_win [npix],
     covered [npix])`` in image row order (flat; see :func:`resolve_zbuffer_tiled`)."""
-    from ivid_tpu_torch import cuda_build
-
-    global launches
     npix = num_buffers * render_size * render_size
     if starts.shape != (npix + 1,) or starts.dtype != torch.int32:
         raise ValueError(f"starts must be int32 [{npix + 1}], got {starts.dtype} {tuple(starts.shape)}")
@@ -70,22 +69,13 @@ def launch(starts, z, payload, k: int, render_size: int, num_buffers: int = 1):
         raise ValueError("payload must be 16-byte aligned")
     if z.device != starts.device or payload.device != starts.device:
         raise ValueError("the resolve's inputs must lie on one device")
-    lib = cuda_build.load("zbuffer_resolve")
-    fn = lib.zbuffer_resolve_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     dev = z.device
     out = torch.empty((npix, k), dtype=torch.float32, device=dev)
     depth = torch.empty((npix,), dtype=torch.float32, device=dev)
     covered = torch.empty((npix,), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(starts.data_ptr(), z.data_ptr(), payload.data_ptr(), out.data_ptr(),
-                depth.data_ptr(), covered.data_ptr(), npix, render_size, k, stream)
-    if rc != 0:
-        raise RuntimeError(f"z-buffer resolve kernel launch failed: CUDA error {rc}")
-    launches += 1
+    cuda_build.launch("zbuffer_resolve", "zbuffer_resolve_launch", _ARGS, dev,
+                      starts.data_ptr(), z.data_ptr(), payload.data_ptr(), out.data_ptr(),
+                      depth.data_ptr(), covered.data_ptr(), npix, render_size, k, count=("K3",))
     return out, depth, covered
 
 

@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from ivid_tpu_torch.ops.attention import _on_device
+from ivid_tpu_torch import cuda_build
 from ivid_tpu_torch.ops.raster import flip_to_image_rows
 from ivid_tpu_torch.ops.raster_tiled import FAR
 
@@ -43,11 +43,6 @@ TILE = 1024  # pixels per tile (the kernels' shared-memory z-buffer)
 TILE_CHUNK = 2048
 TILE_STAGES = 2
 TILE_STAGING = TILE_CHUNK * TILE_STAGES
-
-# Kernel launches since the counters were last reset (chip_smoke.py reads
-# them): K5 (binned) and K6 (tile) launches.
-binned_launches = 0
-tile_launches = 0
 
 # C signatures (csrc/binned_resolve.cu, csrc/tile_resolve.cu): pointers and
 # the stream as c_void_p, counts as c_int.
@@ -142,9 +137,6 @@ def tile_finish(out: torch.Tensor, render_size: int, num_buffers: int = 1):
 
 def _launch_binned(lp: torch.Tensor, z: torch.Tensor, pay: torch.Tensor) -> torch.Tensor:
     """K5 on CUDA tensors: lp int32 [T, F], z f32 [T, F], pay f32 [T, F, 4]."""
-    from ivid_tpu_torch import cuda_build
-
-    global binned_launches
     if lp.dim() != 2:
         raise ValueError(f"binned_resolve takes lp [T, F], got {tuple(lp.shape)}")
     t, f = lp.shape
@@ -158,14 +150,10 @@ def _launch_binned(lp: torch.Tensor, z: torch.Tensor, pay: torch.Tensor) -> torc
         raise ValueError("binned_resolve's inputs must lie on one device")
     if t < 1 or t * f >= 2 ** 31:
         raise ValueError(f"binned_resolve takes 1 <= T and T·F < 2^31, got {t} x {f}")
-    fn = cuda_build.function("binned_resolve", "binned_resolve_launch", _BINNED_ARGS)
     out = torch.empty((t, 5, TILE), dtype=torch.float32, device=lp.device)
-    with _on_device(lp.device):
-        rc = fn(lp.data_ptr(), z.data_ptr(), pay.data_ptr(), out.data_ptr(), t, f,
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"binned_resolve kernel launch failed: CUDA error {rc}")
-    binned_launches += 1
+    cuda_build.launch("binned_resolve", "binned_resolve_launch", _BINNED_ARGS, lp.device,
+                      lp.data_ptr(), z.data_ptr(), pay.data_ptr(), out.data_ptr(), t, f,
+                      count=("K5",))
     return out
 
 
@@ -173,9 +161,6 @@ def _launch_tile(bounds: torch.Tensor, lp: torch.Tensor, z: torch.Tensor,
                  pay: torch.Tensor) -> torch.Tensor:
     """K6 on CUDA tensors: bounds int32 [T+1], lp int32 [N], z f32 [N],
     pay f32 [N, 3], each tile's range sorted by ``lp``."""
-    from ivid_tpu_torch import cuda_build
-
-    global tile_launches
     tiles, n = bounds.shape[0] - 1, lp.shape[0]
     if bounds.dtype != torch.int32 or lp.dtype != torch.int32:
         raise TypeError("tile_resolve takes int32 bounds and lp")
@@ -190,14 +175,10 @@ def _launch_tile(bounds: torch.Tensor, lp: torch.Tensor, z: torch.Tensor,
                          "they must be 16-byte aligned")
     if any(x.device != lp.device for x in (bounds, z, pay)):
         raise ValueError("tile_resolve's inputs must lie on one device")
-    fn = cuda_build.function("tile_resolve", "tile_resolve_launch", _TILE_ARGS)
     out = torch.empty((tiles, 5, TILE), dtype=torch.float32, device=lp.device)
-    with _on_device(lp.device):
-        rc = fn(bounds.data_ptr(), lp.data_ptr(), z.data_ptr(), pay.data_ptr(), out.data_ptr(),
-                tiles, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"tile_resolve kernel launch failed: CUDA error {rc}")
-    tile_launches += 1
+    cuda_build.launch("tile_resolve", "tile_resolve_launch", _TILE_ARGS, lp.device,
+                      bounds.data_ptr(), lp.data_ptr(), z.data_ptr(), pay.data_ptr(),
+                      out.data_ptr(), tiles, count=("K6",))
     return out
 
 

@@ -11,6 +11,10 @@
   and class labels with the null class -1.
 """
 
+import collections
+import contextlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +23,7 @@ import torch
 
 from ivid_tpu.models import build_adm_unet as jax_build
 from ivid_tpu.models.torch_compat import torch_state_dict_to_flax
+from ivid_tpu_torch import cuda_build
 from ivid_tpu_torch.models import adm
 from ivid_tpu_torch.models.convert import flax_to_state_dict
 from ivid_tpu_torch.ops import attention as tattn
@@ -141,10 +146,10 @@ def test_fresh_model_dtypes():
 
 
 # The graphed inference path (``AdmUnet2d.graphable``, ``InferenceGraphs``).
-# A CUDA graph cannot run here: the rule, the key, the bound and the cache's
-# invalidation are checked on the CPU with a stand-in for a CUDA input and for
-# the capture; the replay itself is checked on the card (chip_smoke.py
-# ``[unet graph]``).
+# A CUDA graph cannot run here: the rule, the key, the bound, the cache's
+# invalidation and the launch counts of a capture are checked on the CPU with
+# a stand-in for a CUDA input and for the capture; the replay itself is
+# checked on the card (chip_smoke.py ``[unet graph]``).
 
 class _CudaInput:
     """What ``graphable`` reads of a CUDA input."""
@@ -326,30 +331,52 @@ def test_graph_cache_invalidation(change, dropped):
     assert (model.graphs.entries == {}) == dropped
 
 
-def test_k1_counter_helpers():
-    """A capture takes back the K1 launches it counted and each replay adds
-    them again (``attention.k1_counts``, ``k1_counts_since``,
-    ``add_k1_counts``); a width whose count falls to 0 leaves the table."""
-    saved = tattn.k1_counts()
-    try:
-        tattn.launches, tattn.f32_launches = 7, 2
-        tattn.width_launches.clear()
-        tattn.width_launches.update({768: 7})
-        before = tattn.k1_counts()
-        tattn.launches += 3
-        tattn.width_launches[768] += 1
-        tattn.width_launches[1536] += 2
-        counts = tattn.k1_counts_since(before)
-        assert counts == (3, 0, {768: 1, 1536: 2})
-        tattn.add_k1_counts(counts, -1)
-        assert tattn.k1_counts() == before
-        tattn.add_k1_counts(counts)
-        tattn.add_k1_counts(counts)
-        assert tattn.k1_counts() == (13, 2, {768: 9, 1536: 4})
-    finally:
-        tattn.launches, tattn.f32_launches = saved[:2]
-        tattn.width_launches.clear()
-        tattn.width_launches.update(saved[2])
+class _FakeCudaGraph:
+    def replay(self):
+        pass
+
+    def pool(self):
+        return "pool"
+
+
+def test_capture_takes_back_what_it_counted_and_replays_add_it(monkeypatch):
+    """A capture takes back every launch it counted, whatever the key, and
+    each replay adds them again; a key whose count falls to 0 leaves the
+    counter. The CUDA calls of the capture are stand-ins, and the stand-in
+    forward counts only under the capture (K1, one of K1's widths and a new
+    one, GN and a key of no kernel yet), so the warm-up adds nothing."""
+    capturing = []
+
+    @contextlib.contextmanager
+    def graph(*args, **kwargs):
+        capturing.append(True)
+        yield
+        capturing.pop()
+
+    stream = types.SimpleNamespace(wait_stream=lambda other: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: stream)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda: stream)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeCudaGraph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    start = collections.Counter({"K1": 7, ("K1", 768): 7, "K1 f32": 2})
+    monkeypatch.setattr(cuda_build, "launches", start.copy())
+
+    def forward(x, t, classes):
+        if capturing:
+            cuda_build.launches.update(["K1", ("K1", 768), ("K1", 1536), ("K1", 1536), "GN",
+                                        "K9"])
+        return x + 1
+
+    cache = adm.InferenceGraphs()
+    x, t = torch.zeros(1, 4), torch.zeros(1, dtype=torch.long)
+    assert torch.equal(cache.run(forward, x, t, None), x + 1)
+    assert cuda_build.launches == start and set(cuda_build.launches) == set(start)
+    for _ in range(2):
+        cache.run(forward, x, t, None)
+    assert dict(cuda_build.launches) == {"K1": 9, ("K1", 768): 9, "K1 f32": 2,
+                                         ("K1", 1536): 4, "GN": 2, "K9": 2}
 
 
 @pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from ivid_tpu.ops import attention as jattn
+from ivid_tpu_torch import cuda_build
 from ivid_tpu_torch.ops import attention as tattn
 
 torch.set_num_threads(2)
@@ -55,18 +56,18 @@ def test_plain_gradient_matches_jax_grad(t):
     want = jax.grad(lambda x: jnp.sum(jattn.reference_attention(x, heads, scale) * g))(
         jnp.asarray(qkv))
     x = torch.from_numpy(qkv).requires_grad_()
-    before = tattn.launches, tattn.bwd_launches
+    before = cuda_build.launches.copy()
     (got,) = torch.autograd.grad(tattn.packed_attention(x, heads, scale), x, torch.from_numpy(g))
-    assert (tattn.launches, tattn.bwd_launches) == before
+    assert cuda_build.launches == before
     assert np.abs(np.asarray(want)).max() > 0.1
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
 
 
 def test_cpu_wrapper_uses_plain_version_and_counts_no_launch():
     qkv = torch.from_numpy(_qkv(2, 64, 3, seed=1))
-    before = tattn.launches
+    before = cuda_build.launches.copy()
     out = tattn.packed_attention(qkv, 3, 0.5)
-    assert tattn.launches == before
+    assert cuda_build.launches == before
     torch.testing.assert_close(out, tattn.reference_attention(qkv, 3, 0.5), rtol=0, atol=0)
     assert out.shape == (2, 64, 192)
 
@@ -80,7 +81,7 @@ def test_non_cuda_accelerator_raises():
 def test_launch_on_the_current_device_switches_no_context():
     # A device without an index is the current one: the wrappers launch
     # without entering torch.cuda.device (host time on every launch).
-    assert isinstance(tattn._on_device(torch.device("cuda")), contextlib.nullcontext)
+    assert isinstance(cuda_build._on_device(torch.device("cuda")), contextlib.nullcontext)
 
 
 @pytest.mark.parametrize("bad, match", [

@@ -246,10 +246,10 @@ def test_kernel_raises_on_what_it_does_not_take(name, monkeypatch):
     monkeypatch.setattr(gn, "on_card", lambda x: True)
     monkeypatch.setattr(cuda_build, "function", no_build)
     args, err = _case(name)
-    before = gn.launches
+    before = cuda_build.launches.copy()
     with torch.no_grad(), pytest.raises(err):
         gn.group_norm_act(**args)
-    assert gn.launches == before
+    assert cuda_build.launches == before
 
 
 def test_meta_tensors_take_the_plain_version(monkeypatch):
@@ -332,15 +332,15 @@ def test_the_launch_passes_shapes_modes_and_an_nchw_input(monkeypatch):
     norm = _norm(channels=32, groups=8)
     x = _tensor((2, 32, 8, 8), 3, torch.bfloat16)
     emb = _tensor((2, 64), 4)
-    before = gn.launches
+    before = cuda_build.launches["GN"]
     with torch.no_grad():
         with pytest.raises(ValueError, match="NCHW"):
             norm(x.to(memory_format=torch.channels_last), act=True, emb=emb)
-        assert not calls and gn.launches == before
+        assert not calls and cuda_build.launches["GN"] == before
         y = norm(x, act=True, emb=emb)
         norm(x, act=True, dtype=torch.float32)
         norm(x.float())
-    assert gn.launches == before + 3
+    assert cuda_build.launches["GN"] == before + 3
     assert y.shape == x.shape and y.dtype == torch.bfloat16 and y.is_contiguous()
     assert calls[0][:2] == (x.data_ptr(), y.data_ptr())
     assert calls[0][4:] == (emb.data_ptr(), 64, 2, 32, 8, 64, 1, 1, gn.SCALE_SHIFT_SILU,

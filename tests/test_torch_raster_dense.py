@@ -26,6 +26,7 @@ from ivid_tpu.ops import geometry as jgeom
 from ivid_tpu.ops import raster as jraster
 from ivid_tpu.ops import raster_dense as jrd
 from ivid_tpu.ops import renderer as jrend
+from ivid_tpu_torch import cuda_build
 from ivid_tpu_torch.ops import raster_dense as trd
 
 torch.set_num_threads(2)
@@ -119,9 +120,9 @@ def _compare(got: trd.DenseRaster, want, tag):
 def test_plain_raster_matches_pallas_interpret_and_xla(case, monkeypatch):
     (win, w, attrs, pos), t, g, r, A, tt = _inputs(case)
     discard = CASES[case]["discard"]
-    before = trd.launches
+    before = cuda_build.launches.copy()
     got = trd.rasterize_grid_dense_batched(*t, g, r, discard_attr=discard)
-    assert trd.launches == before  # a CPU tensor never reaches the kernel wrapper's launch
+    assert cuda_build.launches == before  # a CPU tensor never reaches the kernel wrapper's launch
     direct = trd.raster_rows_reference(tt, r, A)
     for a, b in zip(got, direct):
         assert torch.equal(a, b)

@@ -27,6 +27,7 @@ from ivid_tpu.ops import geometry as jgeom
 from ivid_tpu.ops import raster as jraster
 from ivid_tpu.ops import raster_dense as jrd
 from ivid_tpu.ops import renderer as jrend
+from ivid_tpu_torch import cuda_build
 from ivid_tpu_torch.ops import raster_dense as trd
 from ivid_tpu_torch.ops import renderer as trend
 
@@ -103,9 +104,9 @@ def _compare(got, want, tag):
 def test_plain_raster_matches_xla_and_pallas_interpret(monkeypatch):
     samples, r = _rings()
     win, w, attrs, tris = samples[0]
-    before = trd.launches
+    before = cuda_build.launches.copy()
     got = trd.rasterize_tris_dense(*_t(win, w, attrs, tris), r)
-    assert trd.launches == before
+    assert cuda_build.launches == before
     _compare(got, jrd.rasterize_tris_dense(win, w, attrs, tris, r, interpret=True), "pallas")
     monkeypatch.setenv("IVID_TPU_SKIRT_IMPL", "xla")
     _compare(got, jrd.rasterize_tris_dense(win, w, attrs, tris, r), "xla")

@@ -27,7 +27,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from ivid_tpu.ops import raster as jraster
-from ivid_tpu_torch import bench_micro, bench_resolve
+from ivid_tpu_torch import bench_micro, bench_resolve, cuda_build
 from ivid_tpu_torch.ops import resolve_variants as rv
 
 torch.set_num_threads(2)
@@ -492,10 +492,10 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     lp, z, pay = (torch.from_numpy(x) for x in _binned(5))
     f, npix = _fragments(5)
     prepared = _port_prep(f, npix)
-    before = rv.binned_launches, rv.tile_launches
+    before = cuda_build.launches.copy()
     assert torch.equal(rv.binned_resolve(lp, z, pay), rv.binned_resolve_reference(lp, z, pay))
     assert torch.equal(rv.tile_resolve(*prepared), rv.tile_resolve_reference(*prepared))
-    assert (rv.binned_launches, rv.tile_launches) == before
+    assert cuda_build.launches == before
     meta = [x.to("meta") for x in (lp, z, pay)]
     with pytest.raises(ValueError):
         rv.binned_resolve(*meta)
