@@ -47,10 +47,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    version and SDPA in f32 (with SDPA's own error);
 6c. ``[group norm]``: the fused GroupNorm + scale-shift + SiLU kernel against
    the same function in f32 at the SR concatenation [54, 256, 256, 256] bf16,
-   the flagship's [16, 256, 128, 128] f32 and ``b1``'s [1, 512, 8, 8] bf16,
+   an SR output norm [54, 128, 256, 256] bf16 with its input bias, the
+   flagship's [16, 256, 128, 128] f32 and ``b1``'s [1, 512, 8, 8] bf16,
    each also offset by 1e3; timed beside its bytes bound, the composition and
    ``F.group_norm`` + SiLU; then the SR UNet's graphed forward (87 launches,
-   eager and replayed) against the eager composition and the f32 forward;
+   35 with an input bias, and 35 residual launches, eager and replayed)
+   against the eager composition and the f32 forward;
+6d. ``[residual]``: the residual sum with the convolutions' biases against
+   its plain version, bit for bit, at the benchmarked models' residual
+   shapes with an identity and a 1x1 skip; timed at the SR, flagship and
+   ``b1`` shapes beside its bytes bound and the parent's composition;
 7. the full-width single-category UNet (random seeded weights, batch 2) on
    the card with K1 in f32 against the same weights on the CPU plain path;
    then the flagship 1000-class f32 UNet the same way (batch 2 with
@@ -255,6 +261,12 @@ GN_SR_GAP_RATIO = 1.25
 # launches this many times a forward on each sampling path, and never in
 # training (autograd records there).
 GN_SITES = 87
+# The UNet's residual blocks a forward, in every configuration here: in
+# inference on the card each leaves its convolutions' biases to the kernels,
+# so each sampling forward makes this many residual launches (``RES``) and
+# this many of its GroupNorm launches carry an input bias (``GN bias``); none
+# in training.
+RES_SITES = 35
 
 # The first UNet forward of a sampling run on weights read from a .msgpack file
 # vs the same forward on the .pt file of the same weights: the same bits in,
@@ -315,7 +327,8 @@ PEAK_BYTES = 3.35e12
 
 # The launch counts the phases print and check (``cuda_build.launches``
 # keys; K1's launches by qkv width are read by ``k1_widths``).
-COUNTED = ("K1", "K1 f32", "K2", "K2 bins", "K3", "K4", "K4 f32", "K5", "K6", "GN")
+COUNTED = ("K1", "K1 f32", "K2", "K2 bins", "K3", "K4", "K4 f32", "K5", "K6", "GN", "GN bias",
+           "RES")
 
 
 def log(msg):
@@ -1066,12 +1079,12 @@ def phase_flagship_pipeline(steps_uncond=50):
         f"stages (CUDA events) " + ", ".join(f"{k} {v:.1f} ms" for k, v in st.items()))
     log(f"[flagship pipeline] samples {samples.shape} finite {bool(np.isfinite(samples).all())}; "
         f"{len(images)} result png; launches {counts} (K1 f32 {5 * steps_uncond}: five sites "
-        f"per uncond step; GN {GN_SITES} a forward of 5 K1 sites: "
-        f"{GN_SITES * counts['K1'] // 5})")
+        f"per uncond step; GN {GN_SITES} and RES {RES_SITES} a forward of 5 K1 sites: "
+        f"{GN_SITES * counts['K1'] // 5}, {RES_SITES * counts['K1'] // 5})")
     if not (np.isfinite(samples).all() and samples.shape == (2, 2, 128, 128, 4)
             and len(images) == 2 and counts["K1 f32"] == 5 * steps_uncond
             and counts["K1"] > counts["K1 f32"] and counts["K2"] >= 1
-            and counts["K1"] % 5 == 0 and counts["GN"] == GN_SITES * counts["K1"] // 5
+            and counts["K1"] % 5 == 0 and folded(counts, counts["K1"] // 5)
             and counts["K4"] == counts["K3"] == counts["K5"] == counts["K6"] == 0):
         raise RuntimeError("the flagship pipeline run failed its checks")
     return counts, result["output_dir"]
@@ -1120,10 +1133,11 @@ def phase_flagship_train(steps=3):
         f"f32), SyntheticRGBD 128² with 1000 classes, batch {batch} (batch_split {split}), "
         f"{steps} AdamW steps: wall {wall:.2f} s; losses {np.round(losses, 5).tolist()}; ms per "
         f"step (CUDA events) {step_ms}; peak memory {peak:.2f} GiB; launches {counts} (K1 f32 and "
-        f"K4 f32 5 per step, GN 0)")
+        f"K4 f32 5 per step, GN and RES 0)")
     if not (np.isfinite(losses).all() and len(losses) == steps and finite
             and counts["K1 f32"] == counts["K1"] == 5 * steps
-            and counts["K4 f32"] == counts["K4"] == 5 * steps and counts["GN"] == 0):
+            and counts["K4 f32"] == counts["K4"] == 5 * steps
+            and counts["GN"] == counts["RES"] == 0):
         raise RuntimeError("the flagship training run failed its checks")
     del tr
     return counts, peak
@@ -1318,14 +1332,14 @@ def phase_sr(scene_dir, sites, steps=50):
     log(f"[SR] samples {[s.shape for s in samples]} finite "
         f"{all(np.isfinite(s).all() for s in samples)}; results_sr {pngs}; scenes_sr reloaded "
         f"(color, depth shapes) {reloaded}; launches {counts} (K1 {sites} sites x {steps} steps "
-        f"x {chunks} chunks = {sites * steps * chunks}; GN {GN_SITES} a forward = "
-        f"{GN_SITES * steps * chunks})")
+        f"x {chunks} chunks = {sites * steps * chunks}; GN {GN_SITES} and RES {RES_SITES} a "
+        f"forward = {GN_SITES * steps * chunks}, {RES_SITES * steps * chunks})")
     if not (len(samples) == 2 and all(s.shape == (2, 256, 256, 4) and np.isfinite(s).all()
                                       for s in samples)
             and len(pngs) == 2
             and reloaded == [[((256, 256, 3), (256, 256, 1))] * 2] * 2
             and counts["K1"] == sites * steps * chunks and counts["K1 f32"] == 0
-            and counts["GN"] == GN_SITES * steps * chunks
+            and folded(counts, steps * chunks)
             and all(counts[k] == 0 for k in ("K2", "K2 bins", "K3", "K4", "K5", "K6"))):
         raise RuntimeError("the SR run failed its checks")
     profile_sr_step()
@@ -1654,10 +1668,10 @@ def phase_sr_train(sites, steps=3):
         f"checkpoint's: {padded}), {steps} AdamW steps: wall {wall:.2f} s; losses "
         f"{np.round(losses, 5).tolist()}; ms per step (CUDA events) {step_ms}; peak memory "
         f"{peak:.2f} GiB; padded inputs trained {moved}; launches {counts} (K1 and K4 "
-        f"{per_step} per step: {sites} sites x {split} micro-batches; GN 0)")
+        f"{per_step} per step: {sites} sites x {split} micro-batches; GN and RES 0)")
     if not (padded and moved and np.isfinite(losses).all() and len(losses) == steps and finite
             and counts["K1"] == counts["K4"] == per_step * steps
-            and counts["K1 f32"] == counts["K4 f32"] == counts["GN"] == 0
+            and counts["K1 f32"] == counts["K4 f32"] == counts["GN"] == counts["RES"] == 0
             and all(counts[k] == 0 for k in ("K2", "K3", "K5", "K6"))):
         raise RuntimeError("the SR training run failed its checks")
     del tr
@@ -1668,17 +1682,21 @@ def phase_group_norm():
     """``[group norm]``: the GroupNorm kernel (``ops/group_norm.py``,
     ``csrc/group_norm.cu``) against GroupNorm, scale-shift and SiLU computed
     in f32 on the same input (``GN_REL``, ``GN_ABS``), at the SR chunk's
-    concatenated input [54, 256, 256, 256] bf16 with the scale-shift, the f32
-    flagship's [16, 256, 128, 128] and ``b1``'s [1, 512, 8, 8] bf16, each also
-    with its input offset by 1e3 (std 1); the composition's own distance
+    concatenated input [54, 256, 256, 256] bf16 with the scale-shift, its
+    residual blocks' output norm [54, 128, 256, 256] bf16 with the
+    scale-shift and the input bias (the first convolution's, added in f32;
+    timed beside the same launch without it), the f32 flagship's [16, 256,
+    128, 128] and ``b1``'s [1, 512, 8, 8] bf16, each also with its input
+    offset by 1e3 (std 1); the composition's own distance
     (``ops.group_norm.plain``, which rounds to bf16 between its steps) beside
     it; device ms of the kernel, its bytes bound (input read once, output
     written once), the composition and ``F.group_norm`` + SiLU on the input
     as it is (``library_ms``). Then the full-width SR UNet at batch 2 (a
     class and the null class): the graphed forward and the eager one with
-    the kernel (87 launches a forward each, eager and replayed) against the
-    eager composition (a grad-enabled call, which launches none), and each
-    against the f32 forward (TF32 off; the composition too)."""
+    the kernel (87 launches a forward each, eager and replayed, 35 of them
+    with an input bias beside 35 residual launches) against the eager
+    composition (a grad-enabled call, which launches none), and each against
+    the f32 forward (TF32 off; the composition too)."""
     import torch
     import torch.nn.functional as F
 
@@ -1689,33 +1707,39 @@ def phase_group_norm():
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows, failures = [], []
-    for tag, shape, dtype, scale_shift in (
-            ("SR concat", (54, 256, 256, 256), bf16, True),
-            ("in128 uncond", (16, 256, 128, 128), f32, False),
-            ("b1 8x8", (1, 512, 8, 8), bf16, False)):
+    for tag, shape, dtype, scale_shift, biased in (
+            ("SR concat", (54, 256, 256, 256), bf16, True, False),
+            ("SR output norm", (54, 128, 256, 256), bf16, True, True),
+            ("in128 uncond", (16, 256, 128, 128), f32, False, False),
+            ("b1 8x8", (1, 512, 8, 8), bf16, False, False)):
         n, c = shape[:2]
         w = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
         b = 0.1 * torch.randn(c, generator=gen, device="cuda")
         emb = 0.3 * torch.randn((n, 2 * c), generator=gen, device="cuda") if scale_shift else None
+        in_bias = 0.5 * torch.randn(c, generator=gen, device="cuda") if biased else None
         for offset in (0.0, 1e3):
             x = (torch.randn(shape, generator=gen, device="cuda") + offset).to(dtype)
             with torch.no_grad():
-                got = gn.group_norm_act(x, w, b, 32, 1e-5, act=True, emb=emb)
-                want = F.group_norm(x.float(), 32, w, b, 1e-5)
+                got = gn.group_norm_act(x, w, b, 32, 1e-5, act=True, emb=emb, in_bias=in_bias)
+                x32 = x.float() if in_bias is None else x.float() + in_bias[:, None, None]
+                want = F.group_norm(x32, 32, w, b, 1e-5)
+                del x32
                 if emb is not None:
                     want = want * (1 + emb[:, :c, None, None]) + emb[:, c:, None, None]
                 want = F.silu(want)
                 err = ((got.float() - want).abs() - GN_REL[str(dtype)[6:]] * want.abs()).max()
-                plain = gn.plain(x, w, b, 32, 1e-5, act=True, emb=emb)
+                plain = gn.plain(x, w, b, 32, 1e-5, act=True, emb=emb, in_bias=in_bias)
                 plain_err = (plain.float() - want).abs().max().item()
                 kernel_err = (got.float() - want).abs().max().item()
                 ok = err.item() <= GN_ABS[offset] and bool(torch.isfinite(got).all())
                 del got, want, plain
             row = {"shape": list(shape), "dtype": str(dtype)[6:], "scale_shift": scale_shift,
-                   "offset": offset, "max_err": kernel_err, "plain_max_err": plain_err, "ok": ok}
+                   "input_bias": biased, "offset": offset, "max_err": kernel_err,
+                   "plain_max_err": plain_err, "ok": ok}
             if offset == 0.0:
-                def kernel():
-                    return gn.group_norm_act(x, w, b, 32, 1e-5, act=True, emb=emb)
+                def kernel(in_bias=in_bias):
+                    return gn.group_norm_act(x, w, b, 32, 1e-5, act=True, emb=emb,
+                                             in_bias=in_bias)
 
                 def library():
                     y = F.group_norm(x, 32, w.to(dtype), b.to(dtype), 1e-5)
@@ -1725,19 +1749,24 @@ def phase_group_norm():
 
                 with torch.no_grad():
                     row["ms"], row["host_ms"] = timed(kernel, match="gn_act_")
+                    if biased:
+                        row["no_bias_ms"] = timed(lambda: kernel(None), match="gn_act_")[0]
                     row["plain_ms"] = timed(lambda: gn.plain(x, w, b, 32, 1e-5, act=True,
-                                                             emb=emb))[0]
+                                                             emb=emb, in_bias=in_bias))[0]
                     row["library_ms"] = timed(library)[0]
                 row["bound_ms"] = 1e3 * x.numel() * 2 * x.element_size() / PEAK_BYTES
             del x
             torch.cuda.empty_cache()
             log(f"[group norm] {tag} {list(shape)} {row['dtype']}"
-                f"{' scale-shift' if scale_shift else ''}, input offset {offset:g}: max|err| "
+                f"{' scale-shift' if scale_shift else ''}{' input bias' if biased else ''}, "
+                f"input offset {offset:g}: max|err| "
                 f"{row['max_err']:.3e} against f32 (<= {GN_REL[row['dtype']]:.3g}|y| + "
                 f"{GN_ABS[offset]:g}; the composition {row['plain_max_err']:.3e}) ok {ok}"
                 + (f"; kernel {row['ms']:.4f} ms device ({row['host_ms']:.4f} host), bound "
                    f"{row['bound_ms']:.4f} ms ({100 * row['bound_ms'] / row['ms']:.1f}%), "
                    f"composition {row['plain_ms']:.4f}, library {row['library_ms']:.4f}"
+                   + (f", without the input bias {row['no_bias_ms']:.4f}"
+                      if "no_bias_ms" in row else "")
                    if "ms" in row else ""))
             rows.append(row)
             if not ok:
@@ -1758,7 +1787,8 @@ def phase_group_norm():
         model.train(mode == "eager")
         with torch.set_grad_enabled(mode == "composition"):
             outs[mode] = model(x, t, classes).detach()
-        launches[mode] = counts_since(before)["GN"]
+        since = counts_since(before)
+        launches[mode] = [since[k] for k in ("GN", "GN bias", "RES")]
     f32_model = build_backbone(cfg, dtype=f32)
     f32_model.load_state_dict(model.state_dict())
     ref = f32_model.to("cuda")(x, t, classes).detach()  # the composition, in f32
@@ -1772,10 +1802,12 @@ def phase_group_norm():
     same = torch.equal(outs["replayed"], outs["eager"]) and torch.equal(outs["graphed"],
                                                                        outs["eager"])
     ok = (diff <= SR_BF16_REL and same and gap["replayed"] <= GN_SR_GAP_RATIO * gap["composition"]
-          and launches == {"graphed": 87, "replayed": 87, "eager": 87, "composition": 0})
-    log(f"[group norm] SR UNet 256², batch 2: kernel launches a forward {launches} (87, 87, 87, "
-        f"0); replayed vs eager (the kernel) bit-equal {same}; replayed vs the eager composition "
-        f"rel L2 {diff:.3e} (<= {SR_BF16_REL}); rel L2 to the f32 forward: kernel "
+          and launches == {"graphed": [87, 35, 35], "replayed": [87, 35, 35],
+                           "eager": [87, 35, 35], "composition": [0, 0, 0]})
+    log(f"[group norm] SR UNet 256², batch 2: GN, GN bias and RES launches a forward {launches} "
+        f"([87, 35, 35] graphed, replayed and eager; none in the composition); replayed vs "
+        f"eager (the kernel) bit-equal {same}; replayed vs the eager composition rel L2 "
+        f"{diff:.3e} (<= {SR_BF16_REL}); rel L2 to the f32 forward: kernel "
         f"{gap['replayed']:.3e}, composition {gap['composition']:.3e} (kernel <= "
         f"{GN_SR_GAP_RATIO} x composition)")
     torch.backends.cudnn.allow_tf32 = True
@@ -1788,6 +1820,81 @@ def phase_group_norm():
         raise RuntimeError(f"[group norm] failed its checks: {failures}")
     return {"name": "gn_act", "replaces": "none (XLA's GroupNorm in the JAX package)",
             "shapes": rows, "launches_per_forward": launches}
+
+
+# The residual sums of the benchmarked models (shape, type): the SR model at
+# the 27-view chunk (a forward of 54) at each level, the flagship uncond model
+# in f32 and its cond model in bf16 at batch 16, the single-category models at
+# batch 1; the first, the f32 one and the last are timed.
+RES_SHAPES = (
+    ((54, 128, 256, 256), "bf16"), ((54, 128, 128, 128), "bf16"), ((54, 256, 64, 64), "bf16"),
+    ((54, 384, 32, 32), "bf16"), ((54, 512, 16, 16), "bf16"), ((16, 256, 128, 128), "f32"),
+    ((16, 512, 32, 32), "f32"), ((16, 1024, 8, 8), "f32"), ((16, 256, 128, 128), "bf16"),
+    ((1, 128, 128, 128), "bf16"), ((1, 512, 8, 8), "bf16"))
+RES_TIMED = ((54, 128, 256, 256), (16, 256, 128, 128), (1, 512, 8, 8))
+
+
+def phase_residual():
+    """``[residual]``: the residual sum with the convolutions' biases
+    (``ops/bias_residual.py``, ``csrc/bias_residual.cu``) against its plain
+    version, bit for bit, at every shape of RES_SHAPES with an identity skip
+    (one bias) and a 1x1 skip (two); a channels-last input raises. At the
+    timed shapes: device ms of the kernel (1x1 skip), its bytes bound (two
+    reads and a write), and the parent's composition (each convolution's
+    bias in a broadcast pass, then the sum)."""
+    import torch
+
+    from ivid_tpu_torch.ops import bias_residual as res
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows, failures = [], []
+    for shape, name in RES_SHAPES:
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[name]
+        skip = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        conv = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        b = 0.5 * torch.randn(shape[1], generator=gen, device="cuda")
+        b2 = 0.5 * torch.randn(shape[1], generator=gen, device="cuda")
+        row = {"shape": list(shape), "dtype": name}
+        with torch.no_grad():
+            for tag, second in (("identity", None), ("1x1", b2)):
+                got = res.bias_residual(skip, conv, b, second)
+                want = res.plain(skip, conv, b, second)
+                row[f"equal_{tag}"] = bool(torch.equal(got, want))
+                row[f"max_diff_{tag}"] = (got.float() - want.float()).abs().max().item()
+                del got, want
+            if shape in RES_TIMED:
+                def composition():
+                    b_skip, b_conv = b2.to(dtype)[:, None, None], b.to(dtype)[:, None, None]
+                    return (skip + b_skip) + (conv + b_conv)
+
+                row["ms"], row["host_ms"] = timed(lambda: res.bias_residual(skip, conv, b, b2),
+                                                  match="bias_residual_")
+                row["composition_ms"] = timed(composition)[0]
+                row["bound_ms"] = 1e3 * 3 * skip.numel() * skip.element_size() / PEAK_BYTES
+        ok = row["equal_identity"] and row["equal_1x1"]
+        log(f"[residual] {shape} {name}: bit-equal to the plain version, identity skip "
+            f"{row['equal_identity']} (max |diff| {row['max_diff_identity']:.3e}), 1x1 skip "
+            f"{row['equal_1x1']} ({row['max_diff_1x1']:.3e})"
+            + (f"; kernel {row['ms']:.4f} ms device ({row['host_ms']:.4f} host), bound "
+               f"{row['bound_ms']:.4f} ms ({100 * row['bound_ms'] / row['ms']:.1f}%), the "
+               f"composition {row['composition_ms']:.4f}" if "ms" in row else ""))
+        rows.append(row)
+        if not ok:
+            failures.append(f"{shape} {name}")
+        del skip, conv
+        torch.cuda.empty_cache()
+    x = torch.zeros((2, 16, 8, 8), dtype=torch.bfloat16, device="cuda")
+    try:
+        with torch.no_grad():
+            res.bias_residual(x.to(memory_format=torch.channels_last), x,
+                              torch.zeros(16, device="cuda"))
+        failures.append("a channels-last input did not raise")
+    except ValueError:
+        pass
+    if failures:
+        raise RuntimeError(f"[residual] failed its checks: {failures}")
+    return {"name": "bias_residual", "replaces": "none (XLA fuses the convolutions' biases)",
+            "shapes": rows}
 
 
 def phase_unet():
@@ -1835,8 +1942,10 @@ def phase_unet_graph():
     model at batch 1, the flagship CFG model at batch 8), an assigned reload
     (drops the graphs), an in-place reload (keeps them and replays the new
     weights), and calls that stay eager: grad-enabled, and a UNet holding a
-    layer of ``parallel/tensor.py``. The eager side runs the same models in
-    train mode (the forward is the same; train mode is not graphed)."""
+    layer of ``parallel/tensor.py`` (whose block adds its own biases, so it
+    is held bit-equal to the plain layers' forward with that one block kept
+    from folding). The eager side runs the same models in train mode (the
+    forward is the same; train mode is not graphed)."""
     import torch
 
     from ivid_tpu_torch.config import Config, build_backbone, build_framework_from_config
@@ -1947,16 +2056,24 @@ def phase_unet_graph():
         new_eager = call(model, calls[0], False)[0]
         new_graph = call(model, calls[0], True)[0]
         in_place = kept and len(model.graphs.entries) == 1 and torch.equal(new_graph, new_eager)
-        conv = model.input_blocks[1][0].in_layers[2]
+        # The block with the tensor-parallel layer adds its convolutions'
+        # biases itself, where a plain block leaves them to the kernels: the
+        # reference is the plain model with that one block kept from folding.
+        block = model.input_blocks[1][0]
+        block.folds_biases = lambda *a: False
+        tp_ref = call(model, calls[0], False)[0]
+        del block.folds_biases
+        conv = block.in_layers[2]
         col = tp.ColumnConv2d(conv.in_channels, conv.out_channels, 3, padding=1).to("cuda")
         col.load_state_dict(conv.state_dict())
-        model.input_blocks[1][0].in_layers[2] = col
+        block.in_layers[2] = col
         model.graphs.clear()
         tp_out = call(model, calls[0], True)[0]
-        tp_eager = not model.graphs.entries and torch.equal(tp_out, new_eager)
+        tp_eager = not model.graphs.entries and torch.equal(tp_out, tp_ref)
     log(f"[unet graph] sc128 uncond: assigned reload drops the graphs {dropped}, the next "
         f"replay bit-equal {again}; in-place reload keeps them and replays the new weights "
-        f"bit-equal {in_place}; with a tensor-parallel layer eager {tp_eager}")
+        f"bit-equal {in_place}; with a tensor-parallel layer eager and bit-equal to the plain "
+        f"layers' forward with its block unfolded {tp_eager}")
     if not (dropped and again and in_place and tp_eager):
         failures.append("reloads / tensor parallelism")
     del model, models
@@ -1979,6 +2096,14 @@ def read_counts():
     from ivid_tpu_torch import cuda_build
 
     return {k: cuda_build.launches[k] for k in COUNTED}
+
+
+def folded(counts, forwards):
+    """Whether ``counts`` hold ``forwards`` inference forwards' norm and
+    residual launches: GN_SITES GroupNorm launches a forward, RES_SITES of
+    them with an input bias, and RES_SITES residual launches."""
+    return (counts["GN"] == GN_SITES * forwards
+            and counts["GN bias"] == counts["RES"] == RES_SITES * forwards)
 
 
 def counts_since(before):
@@ -2096,12 +2221,13 @@ def phase_pipeline():
     log(f"[pipeline] samples {samples.shape} finite {bool(np.isfinite(samples).all())} "
         f"std {samples.std():.3f}; files: {len(scenes)} scene npz, {len(images)} result png; "
         f"launches: K1 {k1} (>= {5 * 1050}), K2 {k2} (>= 1, each with its bins: "
-        f"{counts['K2 bins']}); GN {counts['GN']} ({GN_SITES} a forward of 5 K1 sites: "
-        f"{GN_SITES * k1 // 5}); host ms waiting for the bins' length "
+        f"{counts['K2 bins']}); GN {counts['GN']}, RES {counts['RES']} ({GN_SITES}, "
+        f"{RES_SITES} a forward of 5 K1 sites: {GN_SITES * k1 // 5}, {RES_SITES * k1 // 5}); "
+        f"host ms waiting for the bins' length "
         f"{raster_dense.sync_s * 1e3:.4f} in all")
     if not (np.isfinite(samples).all() and samples.shape == (2, 2, 128, 128, 4)
             and len(scenes) == 2 and len(images) == 2 and k1 >= 5 * 1050 and k2 >= 1
-            and k1 % 5 == 0 and counts["GN"] == GN_SITES * k1 // 5
+            and k1 % 5 == 0 and folded(counts, k1 // 5)
             and counts["K2 bins"] == k2 and counts["K3"] == counts["K4"] == counts["K5"] == counts["K6"] == 0):
         raise RuntimeError("pipeline run failed its checks")
     return counts
@@ -2148,7 +2274,7 @@ def ckpt_sampling(tmp, paths, pt_path, device="cuda"):
         f"weights: rel L2 {rel:.3e} (<= {CKPT_FORWARD_REL})")
     if not (np.isfinite(samples).all() and samples.shape == (2, 2, 128, 128, 4)
             and counts["K1"] >= 5 * 60 and counts["K2"] >= 1 and rel <= CKPT_FORWARD_REL
-            and counts["K1"] % 5 == 0 and counts["GN"] == GN_SITES * counts["K1"] // 5):
+            and counts["K1"] % 5 == 0 and folded(counts, counts["K1"] // 5)):
         raise RuntimeError("[ckpt migrate] sampling from the .msgpack files failed its checks")
     return counts
 
@@ -2235,7 +2361,8 @@ def ckpt_resume(tmp, state, arch_args, device="cuda"):
         f"(model {n_params:,}); {flops}")
     if not (tr.step == 6 and len(losses) == 3 and all(math.isfinite(x) for x in losses)
             and len(traces) == 1 and total == n_params and counts["K1"] == 5 * 3
-            and counts["K4"] == 5 * 3 and counts["K3"] == 2 * 3 and counts["GN"] == 0):
+            and counts["K4"] == 5 * 3 and counts["K3"] == 2 * 3
+            and counts["GN"] == counts["RES"] == 0):
         raise RuntimeError("[ckpt migrate] the resumed, profiled run failed its checks")
     return counts
 
@@ -2349,7 +2476,8 @@ def phase_train_chain():
     if not (loss_rel <= TRAIN_LOSS_REL and param_rel <= TRAIN_PARAM_REL
             and np.isfinite(got_loss).all()
             and counts == {"K1": 9, "K1 f32": 9, "K2": 3, "K2 bins": 3, "K3": 6, "K4": 9,
-                           "K4 f32": 9, "K5": 0, "K6": 0, "GN": 0}):
+                           "K4 f32": 9, "K5": 0, "K6": 0, "GN": 0, "GN bias": 0,
+                           "RES": 0}):
         raise RuntimeError("the training chain on the card disagrees with the CPU plain path")
     torch.backends.cudnn.allow_tf32 = True
 
@@ -2417,7 +2545,7 @@ def phase_train():
             and reloaded and counts["K1"] == 5 * steps and counts["K4"] == 5 * steps
             and counts["K3"] == 2 * steps and counts["K2"] >= steps
             and counts["K2 bins"] == counts["K2"] and counts["K5"] == counts["K6"] == 0
-            and counts["GN"] == 0):
+            and counts["GN"] == counts["RES"] == 0):
         raise RuntimeError("training run failed its checks")
     return counts, tr
 
@@ -2606,7 +2734,8 @@ def phase_train_files(root, steps=4, device="cuda"):
             f"losses {np.round(losses, 5).tolist()}; launches per step "
             f"{ {k: v / n for k, v in counts.items() if v} }")
         ok = (n > 0 and np.isfinite(losses).all() and tr.ddp is not None and tr.world == 1
-              and counts["K1"] == 5 * n and counts["K4"] == 5 * n and counts["GN"] == 0)
+              and counts["K1"] == 5 * n and counts["K4"] == 5 * n
+              and counts["GN"] == counts["RES"] == 0)
         if warp_host:
             ok &= counts["K2"] == counts["K3"] == 0
         else:
@@ -2858,7 +2987,8 @@ def phase_tp_train(steps=3):
           and reports[0]["shards"] == reports[1]["shards"] and len(specs) > 0
           and slices == 2 * len(specs) and differ == len(specs)
           and counts["K1"] == counts["K4"] == 5 * steps and widths == {1536: 5 * steps}
-          and counts["GN"] == 0 and all(r["counts"]["GN"] == 0 for r in reports)
+          and counts["GN"] == counts["RES"] == 0
+          and all(r["counts"]["GN"] == r["counts"]["RES"] == 0 for r in reports)
           and all(r["counts"]["K1"] == r["counts"]["K4"] == 5 * steps
                   and r["k1_widths"] == {"768": 5 * steps} and r["counts"]["K3"] == 2 * steps
                   and r["counts"]["K2"] >= steps for r in reports))
@@ -2909,17 +3039,17 @@ def phase_dp_sample():
     same_files = names(os.path.join(tmp, "dp")) == names(os.path.join(tmp, "one"))
     log(f"[dp sample] world size 1: wall {wall:.2f} s (the two ranks' launcher "
         f"{launch_wall:.2f} s, with their start); launches K1 {counts['K1']} (f32 "
-        f"{counts['K1 f32']}), K2 {counts['K2']}, GN {counts['GN']} ({GN_SITES} a forward of 5 "
-        f"K1 sites, on each rank and at world size 1)")
+        f"{counts['K1 f32']}), K2 {counts['K2']}, GN {counts['GN']}, RES {counts['RES']} "
+        f"({GN_SITES}, {RES_SITES} a forward of 5 K1 sites, on each rank and at world size 1)")
     log(f"[dp sample] 2 ranks vs 1, per scene: first view max rel L2 {first:.3e} (bound "
         f"{DP_F32_REL}), second view {second:.3e} (bound {SR_BF16_REL}); condition-mask pixels "
         f"differing {flips:.5f} (bound {CHAIN_MASK_FRAC}); the same scene files {same_files}")
     ok = (got.shape == want.shape == (4, 2, 128, 128, 4) and np.isfinite(got).all()
           and first <= DP_F32_REL and second <= SR_BF16_REL and flips <= CHAIN_MASK_FRAC
           and same_files
-          and counts["K1"] % 5 == 0 and counts["GN"] == GN_SITES * counts["K1"] // 5
+          and counts["K1"] % 5 == 0 and folded(counts, counts["K1"] // 5)
           and all(r["counts"]["K1"] == counts["K1"] and r["counts"]["K1 f32"] == counts["K1 f32"]
-                  and r["counts"]["GN"] == counts["GN"]
+                  and r["counts"]["GN"] == counts["GN"] and r["counts"]["RES"] == counts["RES"]
                   and r["counts"]["K2"] == counts["K2"] >= 1 for r in reports))
     if not ok:
         raise RuntimeError("[dp sample] failed its checks")
@@ -2949,7 +3079,7 @@ def phase_graft():
         f"{ms:.1f} ms with its first launches; launches {counts}; dryrun_multichip(2, cuda:0) "
         f"in {dry:.1f} s: {line}")
     if not (finite and tuple(out.shape) == (2, 128, 128, 4) and counts["K1 f32"] == 5
-            and counts["GN"] == GN_SITES
+            and folded(counts, 1)
             and line.startswith("dryrun_multichip: mesh={'data': 1, 'model': 2} loss=")
             and line.endswith(" OK")):
         raise RuntimeError("[graft] failed its checks")
@@ -3011,7 +3141,7 @@ def phase_sr27(steps=3, block=6):
                        "--steps", str(steps), "--guidance", "3", "--classes", "mod",
                        "--batchsize", "27", "--device", "cuda"])["samples"][0]
     graphed_s = time.perf_counter() - t0
-    gn_launches = {"graphed": read_counts()["GN"]}
+    launches = {"graphed": read_counts()}
     pool_gib = (torch.cuda.max_memory_reserved() - mem0) / 2 ** 30
     cfg = Config.load(SR_CFG)
     fw = build_model(cfg, "random", 0, torch.device("cuda"))
@@ -3028,23 +3158,24 @@ def phase_sr27(steps=3, block=6):
             fw, views, classes=0, noise=lambda i: TorchNoise.seeded(i, "cuda"), steps=steps,
             guidance=3.0, batchsize=27, image_size=256).cpu().numpy()
     eager_s = time.perf_counter() - t0
-    gn_launches["eager"] = read_counts()["GN"]
+    launches["eager"] = read_counts()
     equal = graphed.shape == eager.shape == (27, 256, 256, 4) and np.array_equal(graphed, eager)
     diff = float(np.abs(graphed - eager).max()) if graphed.shape == eager.shape else float("nan")
     log(f"[SR 27] sr.main, {os.path.basename(SR_CFG)}, a 27-view 3x9 scene of 128² views, "
         f"--batchsize 27, {steps} guided steps (a forward of 54 at 256²): graphed vs eager "
         f"bit-equal {equal} (largest |diff| {diff:.3e}), finite {bool(np.isfinite(graphed).all())}; "
         f"reserved by the graphed run {pool_gib:.2f} GiB; wall s graphed {graphed_s:.2f} "
-        f"(the graph's warm-up and capture included), eager {eager_s:.2f}; GN launches "
-        f"{gn_launches} ({GN_SITES} a forward x {steps} steps = {GN_SITES * steps} each)")
+        f"(the graph's warm-up and capture included), eager {eager_s:.2f}; GN, GN bias and RES "
+        f"launches { {k: [c[x] for x in ('GN', 'GN bias', 'RES')] for k, c in launches.items()} } "
+        f"({GN_SITES}, {RES_SITES} and {RES_SITES} a forward x {steps} steps each)")
     del fw
     torch.cuda.empty_cache()
     if not (equal and np.isfinite(graphed).all()):
         raise RuntimeError("[SR 27] the graphed SR chunk differs from the eager one")
-    if gn_launches != {"graphed": GN_SITES * steps, "eager": GN_SITES * steps}:
-        raise RuntimeError(f"[SR 27] the GroupNorm kernel launched {gn_launches} times, not "
-                           f"{GN_SITES} a forward")
-    return gn_launches
+    if not all(folded(c, steps) for c in launches.values()):
+        raise RuntimeError(f"[SR 27] the norm and residual kernels launched {launches} times, "
+                           f"not {GN_SITES}, {RES_SITES} and {RES_SITES} a forward")
+    return launches
 
 
 def run_phase(fn, *args, **kwargs):
@@ -3100,10 +3231,11 @@ def main():
         run_phase(phase_attention_backward, 2, 1024, 6, seed=8, time_f32=False)]
     k1_f32, k4_f32 = run_phase(phase_f32_attention)
     gn_entry = run_phase(phase_group_norm)
+    res_entry = run_phase(phase_residual)
     run_phase(phase_unet)
     run_phase(phase_flagship_unet)
     run_phase(phase_unet_graph)
-    sr27_gn = run_phase(phase_sr27)
+    sr27_counts = run_phase(phase_sr27)
     sr_sites = run_phase(phase_sr_unet)
     run_phase(phase_chain)
     run_phase(phase_sr_chain)
@@ -3187,21 +3319,24 @@ def main():
                                      "benches": benches[key]}
     # The GroupNorm kernel: its launches on each main path (87 a forward on
     # the sampling paths, none in training).
-    gn_entry["launches"] = sr_sampling["GN"]
-    gn_entry["launches_by_path"] = {
-        "sr sampling": sr_sampling["GN"], "sr 27 graphed": sr27_gn["graphed"],
-        "sr 27 eager": sr27_gn["eager"], "sampling": sampling["GN"],
-        "flagship sampling": flagship_sampling["GN"], "dp sample (rank 0)": dp_sampling["GN"],
-        "msgpack sampling": ckpt_sampling_counts["GN"], "graft entry": graft["GN"],
-        "training": training["GN"], "file training": file_training["GN"],
-        "flagship training": flagship_training["GN"], "sr training": sr_training["GN"],
-        "tp train (rank 0)": tp_training["GN"], "msgpack resume": ckpt_resume_counts["GN"]}
+    # The GroupNorm kernel and the residual sum: their launches on each main
+    # path (87 and 35 a forward on the sampling paths, none in training).
+    for entry, key in ((gn_entry, "GN"), (res_entry, "RES")):
+        entry["launches"] = sr_sampling[key]
+        entry["launches_by_path"] = {
+            "sr sampling": sr_sampling[key], "sr 27 graphed": sr27_counts["graphed"][key],
+            "sr 27 eager": sr27_counts["eager"][key], "sampling": sampling[key],
+            "flagship sampling": flagship_sampling[key], "dp sample (rank 0)": dp_sampling[key],
+            "msgpack sampling": ckpt_sampling_counts[key], "graft entry": graft[key],
+            "training": training[key], "file training": file_training[key],
+            "flagship training": flagship_training[key], "sr training": sr_training[key],
+            "tp train (rank 0)": tp_training[key], "msgpack resume": ckpt_resume_counts[key]}
     from ivid_tpu_torch import timing
 
     log(f"[timing] device-time readings taken by queued CUDA events instead of "
         f"torch.profiler: {timing.fallbacks}")
     log(json.dumps({"kernels": [k1, k1_train, k1_f32, k2, skirt8, skirt1, k3, k4, k4_f32, k5,
-                                k6, gn_entry]}))
+                                k6, gn_entry, res_entry]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,11 @@
 // embedding layer's f32 output emb [N, 2C] (scale in columns [0, C), shift in
 // [C, 2C)), the per-channel affine from f32 gamma and beta. Input and output
 // types: bf16 -> bf16 (the torso), bf16 -> f32 (the head), f32 -> f32.
+// An optional f32 input bias [C] (null for none) is added to x in f32 wherever
+// the kernel reads it, so group_norm(x + bias[c]) is computed: the bias of the
+// convolution whose output x is, which the UNet leaves out of that
+// convolution (the residual blocks' first convolution; a pass of its own in
+// torch's convolution otherwise).
 //
 // What bounds it on the H100: bytes. Each element is read once and written
 // once: at the SR model's largest site ([54, 256, 256, 256] bf16) 1.81 GB,
@@ -45,6 +50,13 @@
 //   vector (which lies in one channel: H·W is a multiple of the vector's
 //   elements) as y = (x - mean) · a + b, with a = rstd·gamma[c]·(1 + scale)
 //   and b = beta[c]·(1 + scale) + shift, then the SiLU, in f32.
+// - With an input bias every read of x, the slab's first element among them,
+//   is x + bias[c] in f32, c the channel of the element's vector: the
+//   statistics and the apply pass see the biased input, and no pass of its
+//   own writes it. The bias is a template parameter, so the kernel without
+//   one is unchanged; with one, a thread reads its first kVecsPerThread
+//   vectors' biases into registers while its copies land. On the H100 the
+//   bias adds 2-7% to the kernel's time at the SR and flagship shapes.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -73,6 +85,8 @@ struct Params {
   const float* gamma;
   const float* beta;
   const float* emb;      // [N, emb_stride] f32, scale then shift; null unless kScaleShiftSilu
+  const float* in_bias;  // [channels] f32 added to x as it is read; null for none
+  float inv_vecs_per_channel;  // 1 / (H·W / kN), rounded to f32
   long long emb_stride;  // floats from one image's row of emb to the next
   long long slab_vecs;   // 16-byte vectors in one (image, group) slab
   int portion_vecs;      // vectors a block stages (the slab's last block may hold fewer)
@@ -185,7 +199,7 @@ __device__ __forceinline__ void store<float, 4>(float* dst, const float* y) {
 // rounding and ~1e-6 of an f32 output; v / inf gives -0 for v << 0.
 __device__ __forceinline__ float silu(const float v) { return __fdividef(v, 1.f + __expf(-v)); }
 
-template <typename In, typename Out, int kMode>
+template <typename In, typename Out, int kMode, bool kBias>
 __global__ void __launch_bounds__(kMaxThreads) gn_act_kernel(const Params p) {
   using V = Vec<In>;
   constexpr int kN = V::kN;
@@ -204,28 +218,70 @@ __global__ void __launch_bounds__(kMaxThreads) gn_act_kernel(const Params p) {
   const uint4* src = static_cast<const uint4*>(p.x) + slab * p.slab_vecs + first;
 
   for (int v = tid; v < count; v += nthreads) cp_async16(&stage[v], &src[v]);
-  cp_async_wait_all();
 
-  // Each thread's own elements, less the slab's first: mean, then M2.
-  const float origin = V::scalar(static_cast<const In*>(p.x) + slab * p.slab_vecs * kN);
+  const int c0 = static_cast<int>(slab % p.groups) * (p.channels / p.groups);
+  // The channel of the portion's vector v, floor((first + v + 1/2) / V) for
+  // V vectors a channel, in f32: the quotient lies 1/(2V) or more from a
+  // whole number, and its rounding error, under 2^-22 of a quotient below
+  // 196,608 / V (a slab's most vectors), stays under that.
+  auto channel = [&](const int v) {
+    const float q = (static_cast<float>(first + v) + 0.5f) * p.inv_vecs_per_channel;
+    return c0 + static_cast<int>(q);
+  };
+  // With the input bias, the biases of this thread's first kVecsPerThread
+  // vectors (v = tid + k·nthreads) are read while the copies land and kept
+  // in registers for both passes of the statistics.
+  float origin = V::scalar(static_cast<const In*>(p.x) + slab * p.slab_vecs * kN);
+  float cached[kVecsPerThread];
+  if (kBias) {
+    origin += __ldg(p.in_bias + c0);
+#pragma unroll
+    for (int k = 0; k < kVecsPerThread; ++k) {
+      const int v = tid + k * nthreads;
+      cached[k] = v < count ? __ldg(p.in_bias + channel(v)) : 0.f;
+    }
+  }
+  cp_async_wait_all();
+  // body(v, bias) for each of this thread's vectors and its channel's input
+  // bias (0 without): without the bias one loop; with it the cached vectors
+  // unrolled, then a loop over any others.
+  auto each = [&](auto&& body) {
+    if (!kBias) {
+      for (int v = tid; v < count; v += nthreads) body(v, 0.f);
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < kVecsPerThread; ++k) {
+      const int v = tid + k * nthreads;
+      if (v < count) body(v, cached[k]);
+    }
+    for (int v = tid + kVecsPerThread * nthreads; v < count; v += nthreads) {
+      body(v, __ldg(p.in_bias + channel(v)));
+    }
+  };
+
+  // Each thread's own elements, less the slab's first (biased too): mean,
+  // then M2. A bias is one add a vector; an element takes one add as without.
   float f[kN];
   float sum = 0.f;
   int n = 0;
-  for (int v = tid; v < count; v += nthreads) {
+  each([&](const int v, const float bias) {
     V::unpack(stage[v], f);
+    const float shift = bias - origin;
 #pragma unroll
-    for (int i = 0; i < kN; ++i) sum += f[i] - origin;
+    for (int i = 0; i < kN; ++i) sum += f[i] + shift;
     n += kN;
-  }
+  });
   Moments m{static_cast<float>(n), n ? sum / static_cast<float>(n) : 0.f, 0.f};
-  for (int v = tid; v < count; v += nthreads) {
+  each([&](const int v, const float bias) {
     V::unpack(stage[v], f);
+    const float shift = bias - origin;
 #pragma unroll
     for (int i = 0; i < kN; ++i) {
-      const float d = f[i] - origin - m.mean;
+      const float d = f[i] + shift - m.mean;
       m.m2 += d * d;
     }
-  }
+  });
   m = warp_merge(m);
   const int warp = tid >> 5, lane = tid & 31;
   if (lane == 0) warp_part[warp] = m;
@@ -258,11 +314,10 @@ __global__ void __launch_bounds__(kMaxThreads) gn_act_kernel(const Params p) {
 
   const float mean = stats[0], rstd = stats[1];
   const int img = static_cast<int>(slab / p.groups);
-  const int c0 = static_cast<int>(slab % p.groups) * (p.channels / p.groups);
-  const int vecs_per_channel = p.hw / kN;
   Out* dst = static_cast<Out*>(p.y) + (slab * p.slab_vecs + first) * kN;
   for (int v = tid; v < count; v += nthreads) {
-    const int c = c0 + static_cast<int>((first + v) / vecs_per_channel);
+    const int c = channel(v);
+    const float shift = kBias ? __ldg(p.in_bias + c) - mean : -mean;
     float a = rstd * __ldg(p.gamma + c);
     float b = __ldg(p.beta + c);
     if (kMode == kScaleShiftSilu) {
@@ -274,7 +329,7 @@ __global__ void __launch_bounds__(kMaxThreads) gn_act_kernel(const Params p) {
     V::unpack(stage[v], f);
 #pragma unroll
     for (int i = 0; i < kN; ++i) {
-      const float y = fmaf(f[i] - mean, a, b);
+      const float y = fmaf(f[i] + shift, a, b);
       f[i] = kMode == kNorm ? y : silu(y);
     }
     store<Out, kN>(dst + static_cast<long long>(v) * kN, f);
@@ -283,10 +338,10 @@ __global__ void __launch_bounds__(kMaxThreads) gn_act_kernel(const Params p) {
   if (p.cluster > 1) cluster_wait();
 }
 
-template <typename In, typename Out, int kMode>
+template <typename In, typename Out, int kMode, bool kBias>
 cudaError_t launch(const Params& p, long long slabs, int threads, size_t smem,
                    cudaStream_t stream) {
-  auto kernel = gn_act_kernel<In, Out, kMode>;
+  auto kernel = gn_act_kernel<In, Out, kMode, kBias>;
   static bool opted_in[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -316,18 +371,27 @@ cudaError_t launch(const Params& p, long long slabs, int threads, size_t smem,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename In, typename Out>
+template <typename In, typename Out, bool kBias>
 cudaError_t launch_mode(const Params& p, int mode, long long slabs, int threads, size_t smem,
                         cudaStream_t stream) {
   switch (mode) {
     case kNorm:
-      return launch<In, Out, kNorm>(p, slabs, threads, smem, stream);
+      return launch<In, Out, kNorm, kBias>(p, slabs, threads, smem, stream);
     case kSilu:
-      return launch<In, Out, kSilu>(p, slabs, threads, smem, stream);
+      return launch<In, Out, kSilu, kBias>(p, slabs, threads, smem, stream);
     case kScaleShiftSilu:
-      return launch<In, Out, kScaleShiftSilu>(p, slabs, threads, smem, stream);
+      return launch<In, Out, kScaleShiftSilu, kBias>(p, slabs, threads, smem, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// The kernel with or without the input bias: separate instances, so that
+// the one without reads x as before the bias existed.
+template <typename In, typename Out>
+cudaError_t launch_bias(const Params& p, int mode, long long slabs, int threads, size_t smem,
+                        cudaStream_t stream) {
+  return p.in_bias ? launch_mode<In, Out, true>(p, mode, slabs, threads, smem, stream)
+                   : launch_mode<In, Out, false>(p, mode, slabs, threads, smem, stream);
 }
 
 }  // namespace
@@ -337,14 +401,15 @@ cudaError_t launch_mode(const Params& p, int mode, long long slabs, int threads,
 // and f32 -> f32 only); gamma, beta [channels] f32; emb [batch, emb_stride]
 // f32 with scale in columns [0, channels) and shift in [channels,
 // 2·channels) for mode 2, else unused. mode: 0 group norm, 1 with the SiLU,
-// 2 with the scale-shift and the SiLU. channels % groups == 0, hw = H·W a
-// multiple of the 16-byte vector's elements (8 bf16, 4 f32), a slab
-// ((channels / groups)·hw elements) at most kMaxCluster·kMaxStageBytes.
-// Returns the launch's CUDA error code (0 on success).
+// 2 with the scale-shift and the SiLU; in_bias [channels] f32 added to x as
+// it is read, or null. channels % groups == 0, hw = H·W a multiple of the
+// 16-byte vector's elements (8 bf16, 4 f32), a slab ((channels / groups)·hw
+// elements) at most kMaxCluster·kMaxStageBytes. Returns the launch's CUDA
+// error code (0 on success).
 extern "C" int gn_act_launch(const void* x, void* y, const void* gamma, const void* beta,
-                             const void* emb, long long emb_stride, int batch, int channels,
-                             int groups, int hw, int in_bf16, int out_bf16, int mode, float eps,
-                             void* stream) {
+                             const void* emb, long long emb_stride, const void* in_bias,
+                             int batch, int channels, int groups, int hw, int in_bf16,
+                             int out_bf16, int mode, float eps, void* stream) {
   const int elems = in_bf16 ? 8 : 4;
   if (batch <= 0 || groups <= 0 || channels % groups || hw % elems || (!in_bf16 && out_bf16) ||
       mode < 0 || mode > 2 || (mode == kScaleShiftSilu && emb == nullptr)) {
@@ -357,6 +422,8 @@ extern "C" int gn_act_launch(const void* x, void* y, const void* gamma, const vo
   p.beta = static_cast<const float*>(beta);
   p.emb = static_cast<const float*>(emb);
   p.emb_stride = emb_stride;
+  p.in_bias = static_cast<const float*>(in_bias);
+  p.inv_vecs_per_channel = 1.f / static_cast<float>(hw / elems);
   p.channels = channels;
   p.groups = groups;
   p.hw = hw;
@@ -377,11 +444,11 @@ extern "C" int gn_act_launch(const void* x, void* y, const void* gamma, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (!in_bf16) {
-    err = launch_mode<float, float>(p, mode, slabs, threads, smem, s);
+    err = launch_bias<float, float>(p, mode, slabs, threads, smem, s);
   } else if (out_bf16) {
-    err = launch_mode<__nv_bfloat16, __nv_bfloat16>(p, mode, slabs, threads, smem, s);
+    err = launch_bias<__nv_bfloat16, __nv_bfloat16>(p, mode, slabs, threads, smem, s);
   } else {
-    err = launch_mode<__nv_bfloat16, float>(p, mode, slabs, threads, smem, s);
+    err = launch_bias<__nv_bfloat16, float>(p, mode, slabs, threads, smem, s);
   }
   return static_cast<int>(err);
 }

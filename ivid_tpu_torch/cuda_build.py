@@ -9,7 +9,9 @@ touches nvcc or the GPU. The attention kernels link the driver library
 (``-lcuda``) for ``cuTensorMapEncodeTiled``, which describes their TMA copies.
 
 Every kernel wrapper of ``ops/`` launches through :func:`launch`, which
-counts each launch in :data:`launches`.
+counts each launch in :data:`launches`. The inference forward's kernels (the
+GroupNorm's and the residual sum's) and the UNet's layout and bias fold
+dispatch on one rule, :func:`kernel_applies`.
 """
 
 from __future__ import annotations
@@ -136,6 +138,21 @@ def _on_device(device: torch.device):
     if device.index is None or device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` lies where the kernels run."""
+    return x.device.type == "cuda"
+
+
+def kernel_applies(x: torch.Tensor, *tensors) -> bool:
+    """Whether a call on ``x`` with ``tensors`` (parameters, embeddings,
+    biases; None for none) launches the inference forward's kernels: ``x``
+    on the card, and autograd records a computation on none of them. The
+    UNet lays its torso out NCHW in memory where this holds
+    (``models/adm.py``), since the kernels take no other layout."""
+    return on_card(x) and not (torch.is_grad_enabled()
+                               and any(t is not None and t.requires_grad for t in (x, *tensors)))
 
 
 def launch(name: str, symbol: str, argtypes, device: torch.device, *args, count) -> None:

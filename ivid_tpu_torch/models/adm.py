@@ -21,6 +21,10 @@ composition: the input cast to f32, GroupNorm, the result cast back, the
 scale-shift in the torso's type, then the SiLU. The public call takes and
 returns NHWC tensors; internally activations are NCHW, and in inference on
 the card NCHW in memory too (the kernel reads each group as one slab).
+There, too, a residual block's convolutions run without their biases: the
+first one's is added in f32 by the output norm's kernel as it reads the
+convolution's output, the last one's and a 1x1 skip's by the residual sum's
+kernel (:mod:`ivid_tpu_torch.ops.bias_residual`), which rounds the sum once.
 
 Dropout applies only where a caller asks for it (``deterministic=False``),
 as in the JAX package, whose callers never do: the module's
@@ -56,6 +60,7 @@ import torch.utils.hooks
 
 from ivid_tpu_torch import cuda_build
 from ivid_tpu_torch.ops import attention as attn_ops
+from ivid_tpu_torch.ops import bias_residual as res_ops
 from ivid_tpu_torch.ops import group_norm as gn_ops
 from ivid_tpu_torch.utils.profiling import span
 
@@ -97,17 +102,19 @@ class GroupNorm32(nn.GroupNorm):
         super().__init__(num_groups, num_channels, eps=1e-5)
 
     def forward(self, x, act: bool = False, emb: Optional[torch.Tensor] = None,
-                dtype: Optional[torch.dtype] = None):
+                dtype: Optional[torch.dtype] = None, in_bias: Optional[torch.Tensor] = None):
         return gn_ops.group_norm_act(x, self.weight, self.bias, self.num_groups, self.eps,
-                                     act=act, emb=emb, dtype=dtype)
+                                     act=act, emb=emb, dtype=dtype, in_bias=in_bias)
 
 
 class Conv2d(nn.Conv2d):
-    """Convolution in its input's type: f32 parameters cast per call."""
+    """Convolution in its input's type: f32 parameters cast per call;
+    ``bias=False`` leaves the bias out, for the kernel that next reads the
+    output to add."""
 
-    def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+    def forward(self, x, bias: bool = True):
+        b = None if self.bias is None or not bias else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
 def _conv(cin: int, cout: int, k: int, zero: bool = False) -> Conv2d:
@@ -151,25 +158,49 @@ class ResBlock(nn.Module):
             _conv(channels, out_channels, 1) if channels != out_channels else nn.Identity()
         )
 
+    def folds_biases(self, x, emb) -> bool:
+        """Whether this call leaves its convolutions' biases to the kernels
+        that next read their outputs: where every tensor of the block takes
+        the kernels (:func:`cuda_build.kernel_applies`: on the card, autograd
+        recording none of them) and its convolutions are plain
+        :class:`Conv2d` (the layers of ``parallel/tensor.py`` add their own
+        biases, a row-parallel one after its all-reduce)."""
+        convs = (self.in_layers[2], self.out_layers[3], self.skip_connection)
+        return (all(type(m) in (Conv2d, nn.Identity) for m in convs)
+                and cuda_build.kernel_applies(x, emb, *self.parameters()))
+
     def forward(self, x, emb, deterministic: bool = True):
         with span("unet.resblock"):
+            # In inference on the card the first convolution's bias goes to
+            # the output norm and the last's and the skip's to the residual
+            # sum, each added in f32 as the kernel reads the output; torch
+            # would spend a broadcast pass over each output on it.
+            fold = self.folds_biases(x, emb)
             h = self.in_layers[0](x, act=True)  # with in_layers[1], the SiLU
             if self.up:
                 h, x = _up(h), _up(x)
             elif self.down:
                 h, x = _down(h), _down(x)
-            h = self.in_layers[2](h)
+            conv_in = self.in_layers[2]
+            fold_in = fold and self.use_scale_shift_norm
+            h = conv_in(h, bias=False) if fold_in else conv_in(h)
             emb_out = self.emb_layers(emb)
             norm, _, drop, conv = self.out_layers  # out_layers[1], the SiLU, fused in norm
             if self.use_scale_shift_norm:
-                h = norm(h, act=True, emb=emb_out)
+                h = norm(h, act=True, emb=emb_out, in_bias=conv_in.bias if fold_in else None)
             else:
                 h = norm(h + emb_out.to(h.dtype)[..., None, None], act=True)
             if not deterministic and drop.p > 0:
                 # torch's global generator draws the mask (the JAX package's
                 # ``dropout`` rng stream has no counterpart here).
                 h = F.dropout(h, drop.p, training=True)
-            return self.skip_connection(x) + conv(h)
+            if not fold:
+                return self.skip_connection(x) + conv(h)
+            skip = self.skip_connection
+            if isinstance(skip, Conv2d):
+                return res_ops.bias_residual(skip(x, bias=False), conv(h, bias=False),
+                                             conv.bias, skip.bias)
+            return res_ops.bias_residual(x, conv(h, bias=False), conv.bias)
 
 
 class TokenConv1d(nn.Conv1d):
@@ -492,7 +523,7 @@ class AdmUnet2d(nn.Module):
         # keeps the composition, and the torso keeps that layout, as on the
         # CPU.
         h = x.permute(0, 3, 1, 2)
-        nchw = gn_ops.kernel_applies(h, *self.input_blocks[0].parameters())
+        nchw = cuda_build.kernel_applies(h, *self.input_blocks[0].parameters())
         h = h.to(self.dtype, memory_format=torch.contiguous_format if nchw
                  else torch.preserve_format)
         hs = []

@@ -7,11 +7,14 @@ The ADM UNet normalises at 87 sites a forward, in three functions:
 head), ``silu(group_norm(x) * (1 + scale) + shift)`` (a residual block's
 output layers, ``scale`` and ``shift`` from the timestep embedding) and
 ``group_norm(x)`` (an attention block's norm). :func:`group_norm_act`
-computes any of them. A CUDA tensor whose computation autograd does not
-record launches ``csrc/group_norm.cu`` (which replaces no TPU kernel; its
-source notes say why it exists, what bounds it and how it is built): one
-launch reads the input once, computes the statistics in f32 and writes the
-result once, rounded to the output type after the SiLU. Every other tensor
+computes any of them, optionally of ``x + in_bias`` (a per-channel f32 bias
+added as ``x`` is read: the bias of the convolution whose output ``x`` is,
+which a residual block in inference on the card leaves to this call). A
+CUDA tensor whose computation autograd does not record launches
+``csrc/group_norm.cu`` (which replaces no TPU kernel; its source notes say
+why it exists, what bounds it and how it is built): one launch reads the
+input once, computes the statistics in f32 and writes the result once,
+rounded to the output type after the SiLU. Every other tensor
 (the CPU, the meta device, and a CUDA tensor while autograd records, as in
 training) takes :func:`plain`, the composition the UNet computed before the
 kernel existed: the input cast to f32, torch's GroupNorm, the result cast
@@ -37,41 +40,28 @@ TYPES = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
 MAX_SLAB_BYTES = 16 * 192 * 1024
 
 # C signature (csrc/group_norm.cu): five pointers, the embedding's row
-# stride, seven ints, eps, the stream.
-_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+# stride, the input bias's pointer, seven ints, eps, the stream.
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 7
          + [ctypes.c_float, ctypes.c_void_p])
 
 
 def plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float,
           act: bool = False, emb: Optional[torch.Tensor] = None,
-          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The plain version: ``F.group_norm`` on ``x`` cast to f32, the result
-    cast to ``dtype`` (``x``'s type if None); with ``emb`` ([N, 2C], the
-    scale then the shift) cast to that type, ``y * (1 + scale) + shift``;
-    with ``act`` the SiLU."""
-    y = F.group_norm(x.float(), groups, weight, bias, eps).to(dtype or x.dtype)
+          dtype: Optional[torch.dtype] = None,
+          in_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version: ``F.group_norm`` on ``x`` cast to f32 (plus
+    ``in_bias`` per channel, in f32), the result cast to ``dtype`` (``x``'s
+    type if None); with ``emb`` ([N, 2C], the scale then the shift) cast to
+    that type, ``y * (1 + scale) + shift``; with ``act`` the SiLU."""
+    x32 = x.float() if in_bias is None else x.float() + in_bias[:, None, None]
+    y = F.group_norm(x32, groups, weight, bias, eps).to(dtype or x.dtype)
     if emb is not None:
         scale, shift = emb.to(y.dtype)[..., None, None].chunk(2, dim=1)
         y = y * (1 + scale) + shift
     return F.silu(y) if act else y
 
 
-def on_card(x: torch.Tensor) -> bool:
-    """Whether ``x`` lies where the kernel runs."""
-    return x.device.type == "cuda"
-
-
-def kernel_applies(x: torch.Tensor, *tensors) -> bool:
-    """Whether a call on ``x`` with ``tensors`` (the affine, the embedding)
-    launches the kernel: ``x`` on the card, and autograd records a
-    computation on none of them. The UNet lays its torso out NCHW in memory
-    where this holds (``models/adm.py``), since the kernel takes no other
-    layout."""
-    return on_card(x) and not (torch.is_grad_enabled()
-                               and any(t is not None and t.requires_grad for t in (x, *tensors)))
-
-
-def _check(x, weight, bias, groups, act, emb, dtype):
+def _check(x, weight, bias, groups, act, emb, dtype, in_bias=None):
     """Raise on what the kernel does not take."""
     if emb is not None and not act:
         raise ValueError("group_norm_act kernel: the scale-shift comes with the SiLU")
@@ -91,41 +81,47 @@ def _check(x, weight, bias, groups, act, emb, dtype):
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"group_norm_act kernel needs an NCHW-contiguous, 16-byte aligned input, "
                          f"got strides {x.stride()}")
-    for name, p in (("weight", weight), ("bias", bias)):
+    for name, p in (("weight", weight), ("bias", bias), ("input bias", in_bias)):
+        if p is None:
+            continue
         if p.dtype != torch.float32 or p.shape != (c,) or not p.is_contiguous():
             raise ValueError(f"group_norm_act kernel needs an f32 {name} of shape ({c},)")
     if emb is not None and (emb.dtype != torch.float32 or emb.shape != (n, 2 * c)
                             or emb.stride(1) != 1):
         raise ValueError(f"group_norm_act kernel needs an f32 scale-shift embedding of shape "
                          f"({n}, {2 * c}) with unit column stride, got {tuple(emb.shape)}")
-    if any(t is not None and t.device != x.device for t in (weight, bias, emb)):
+    if any(t is not None and t.device != x.device for t in (weight, bias, emb, in_bias)):
         raise ValueError("group_norm_act kernel: tensors on different devices")
 
 
-def _launch(x, weight, bias, groups, eps, act, emb, dtype) -> torch.Tensor:
-    _check(x, weight, bias, groups, act, emb, dtype)
+def _launch(x, weight, bias, groups, eps, act, emb, dtype, in_bias=None) -> torch.Tensor:
+    _check(x, weight, bias, groups, act, emb, dtype, in_bias)
     n, c, h, w = x.shape
     y = torch.empty(x.shape, dtype=dtype, device=x.device)
     mode = SCALE_SHIFT_SILU if emb is not None else SILU if act else NORM
     cuda_build.launch("group_norm", "gn_act_launch", _ARGS, x.device,
                       x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                       0 if emb is None else emb.data_ptr(), 0 if emb is None else emb.stride(0),
-                      n, c, groups, h * w, int(x.dtype == torch.bfloat16),
-                      int(dtype == torch.bfloat16), mode, float(eps), count=("GN",))
+                      0 if in_bias is None else in_bias.data_ptr(), n, c, groups, h * w,
+                      int(x.dtype == torch.bfloat16), int(dtype == torch.bfloat16), mode,
+                      float(eps), count=("GN",) if in_bias is None else ("GN", "GN bias"))
     return y
 
 
 def group_norm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
                    eps: float, act: bool = False, emb: Optional[torch.Tensor] = None,
-                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                   dtype: Optional[torch.dtype] = None,
+                   in_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``group_norm(x)`` over ``groups`` groups with the f32 affine
-    ``weight``, ``bias``; with ``emb`` ([N, 2C] f32, the scale then the
+    ``weight``, ``bias`` (of ``x + in_bias`` in f32 where a [C] f32
+    ``in_bias`` is given); with ``emb`` ([N, 2C] f32, the scale then the
     shift) ``* (1 + scale) + shift``; with ``act`` the SiLU (the kernel
     takes ``emb`` only with it); returned in ``dtype`` (``x``'s type if None).
-    Where :func:`kernel_applies` the kernel launches (or the call raises on
+    Where :func:`~ivid_tpu_torch.cuda_build.kernel_applies` the kernel
+    launches (or the call raises on
     a type, shape or layout it does not take); every other call is
     :func:`plain`."""
     dtype = dtype or x.dtype
-    if not kernel_applies(x, weight, bias, emb):
-        return plain(x, weight, bias, groups, eps, act, emb, dtype)
-    return _launch(x, weight, bias, groups, eps, act, emb, dtype)
+    if not cuda_build.kernel_applies(x, weight, bias, emb, in_bias):
+        return plain(x, weight, bias, groups, eps, act, emb, dtype, in_bias)
+    return _launch(x, weight, bias, groups, eps, act, emb, dtype, in_bias)
